@@ -1,0 +1,872 @@
+"""The render device on torch tensors (port of core/device.py).
+
+The whole voice population lives in one structure-of-arrays param table
+(host numpy), and each dispatch renders ``n_blocks`` blocks for every voice
+at once on the chosen torch device:
+
+    resample (unit kernel or plain gather) -> HRTF contraction (matmul)
+    -> skew-sum -> accumulator fold -> [n_blocks, 2, T] output
+
+This slice ports the path of the ``best_case`` scene: binaural HRTF output
+with per-voice HRIRs, no filters, no effect slots and nothing on the dry
+ambisonic bus.  Multi-block dispatches take the fused super-block branch
+(one resample + one contraction per 2..16 blocks); single blocks take the
+per-block branch.  The branches not ported yet raise NotImplementedError
+naming their ROADMAP item; on the card nothing falls back to the CPU.
+
+Idiom: ``lax.scan`` with donated state becomes a Python loop that updates
+the carried state (``_state``) and the evolving fields (``ev``) in place and
+writes each block into a preallocated output, copied to the host once per
+dispatch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from openal_soft_tpu.constants import (
+    BUFFER_LINE_SIZE,
+    GAIN_FADE_SAMPLES,
+    MAX_AMBI_CHANNELS,
+    MIXER_FRAC_BITS,
+    MIXER_FRAC_MASK,
+)
+from openal_soft_tpu.core import context as cparams
+from openal_soft_tpu.core import hrtf as hrtf_mod
+from openal_soft_tpu.core import logging as log
+from openal_soft_tpu.core import mastering, panning
+from openal_soft_tpu.core.devformat import DevFmtChannels, DevFmtType, FmtChannels
+from openal_soft_tpu.core.voice import PlayState
+from openal_soft_tpu.ops import tables
+
+from .._device import resolve_device
+from ..ops import hrtf_mix
+from ..ops import resample as rs_ops
+from ..ops.kernels import resample_unit as rs_unit
+
+f32 = np.float32
+_UHJ_FORMATS = (FmtChannels.UHJ2, FmtChannels.UHJ3, FmtChannels.UHJ4,
+                FmtChannels.SUPER_STEREO)
+
+
+def _to_dev(a, device: torch.device) -> torch.Tensor:
+    """A device copy of a host array (never a view: state updates in place)."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+class BufferPool:
+    """Device-resident sample pool with a host-side bump/free allocator.
+
+    Decoded float32 planar buffer data is uploaded once; voices read it with
+    affine index math (replacing the reference's per-block staging copies
+    in Voice::mix, core/voice.cpp:867-931).
+    """
+
+    def __init__(self, initial_capacity: int = 1 << 20) -> None:
+        self._host = np.zeros(initial_capacity, f32)
+        self._top = 8  # offset 0 reserved: silence guard
+        self._free: list[tuple[int, int]] = []
+        self._device: torch.Tensor | None = None
+        self._dirty = True
+
+    def alloc(self, data: np.ndarray) -> int:
+        n = data.size
+        for i, (off, sz) in enumerate(self._free):
+            if sz >= n:
+                self._free.pop(i)
+                if sz > n:
+                    self._free.append((off + n, sz - n))
+                self._host[off:off + n] = data.ravel()
+                self._dirty = True
+                return off
+        while self._top + n + 4096 > self._host.size:
+            self._host = np.concatenate([self._host,
+                                         np.zeros(self._host.size, f32)])
+        off = self._top
+        self._top += n
+        self._host[off:off + n] = data.ravel()
+        self._dirty = True
+        return off
+
+    def free(self, offset: int, size: int) -> None:
+        # Coalesce with adjacent free spans so buffer churn doesn't fragment
+        # the pool.
+        self._free.append((offset, size))
+        self._free.sort()
+        merged: list[tuple[int, int]] = []
+        for off, sz in self._free:
+            if merged and merged[-1][0] + merged[-1][1] == off:
+                merged[-1] = (merged[-1][0], merged[-1][1] + sz)
+            else:
+                merged.append((off, sz))
+        # A top-adjacent free span returns to the bump allocator.
+        if merged and merged[-1][0] + merged[-1][1] == self._top:
+            self._top = merged.pop()[0]
+        self._free = merged
+
+    def device_array(self, device: torch.device) -> torch.Tensor:
+        if self._dirty or self._device is None:
+            self._device = _to_dev(self._host, device)
+            self._dirty = False
+        return self._device
+
+
+@dataclasses.dataclass
+class ParamTable:
+    """SoA per-line mixing parameters (the atomically-swapped props of the
+    reference, batched).  One row = one voice mixing channel."""
+    capacity: int
+    n_dry: int
+    n_sends: int
+    n_wet: int
+
+    def __post_init__(self) -> None:
+        L = self.capacity
+        S = max(self.n_sends, 1)
+        self.active = np.zeros(L, bool)
+        self.playing = np.zeros(L, bool)
+        self.fade = np.zeros(L, np.int32)
+        self.pos_int = np.zeros(L, np.int32)
+        self.pos_frac = np.zeros(L, np.int32)
+        self.increment = np.full(L, 1, np.int32)
+        self.bank_row = np.zeros(L, np.int32)
+        self.sf = np.zeros(L, f32)
+        self.src_off = np.zeros(L, np.int32)
+        self.src_len = np.zeros(L, np.int32)
+        self.loop_start = np.zeros(L, np.int32)
+        self.loop_end = np.full(L, 1, np.int32)
+        self.has_loop = np.zeros(L, bool)
+        self.has_wrapped = np.zeros(L, bool)
+        self.dry_cur = np.zeros((L, self.n_dry), f32)
+        self.dry_tgt = np.zeros((L, self.n_dry), f32)
+        self.filter_active = np.zeros(L, bool)
+        self.filter_coeffs = np.zeros((L, 2, 5), f32)
+        self.filter_target = np.zeros((L, 2, 5), f32)
+        self.filter_counter = np.zeros(L, np.int32)
+        # Identity biquads by default
+        self.filter_coeffs[:, :, 0] = 1.0
+        self.filter_target[:, :, 0] = 1.0
+        # HRTF rows: 192-tap HRIRs, each shifted by its integer delay on the
+        # host, so the device needs no per-bin phase factors.
+        self.hrtf_gain = np.zeros(L, f32)
+        self.hrtf_old_gain = np.zeros(L, f32)
+        self.hrtf_coeffs = np.zeros((L, 192, 2), f32)
+        self.hrtf_old_coeffs = np.zeros((L, 192, 2), f32)
+        self.hrtf_delay = np.zeros((L, 2), np.int32)
+        self.hrtf_old_delay = np.zeros((L, 2), np.int32)
+        # Wet sends: routing + gains
+        self.wet_slot = np.zeros((L, S), np.int32)
+        self.wet_active = np.zeros((L, S), bool)
+        self.wet_cur = np.zeros((L, S, self.n_wet), f32)
+        self.wet_tgt = np.zeros((L, S, self.n_wet), f32)
+        self.send_filter_active = np.zeros((L, S), bool)
+        self.send_filter_coeffs = np.zeros((L, S, 2, 5), f32)
+        self.send_filter_target = np.zeros((L, S, 2, 5), f32)
+        self.send_filter_counter = np.zeros((L, S), np.int32)
+        self.send_filter_coeffs[:, :, :, 0] = 1.0
+        self.send_filter_target[:, :, :, 0] = 1.0
+        # NFC: w0 per row, -1.0 = create-state identity filter.
+        self.nfc_w0 = np.full(L, -1.0, f32)
+        self.nfc_active = np.zeros(L, bool)
+
+    # Fields that evolve deterministically on the device within a dispatch;
+    # the host mirrors their end state with identical integer/f32 math, so
+    # they upload once per dispatch — not per block.
+    _EVOLVING = ("pos_int", "pos_frac", "fade", "has_wrapped", "dry_cur",
+                 "filter_coeffs", "filter_counter", "wet_cur",
+                 "send_filter_coeffs", "send_filter_counter")
+    # Configuration fields: change only on voice/param events.
+    _CONFIG = ("active", "playing", "increment", "bank_row", "sf", "src_off",
+               "src_len", "loop_start", "loop_end", "has_loop",
+               "dry_tgt", "filter_active", "filter_target", "hrtf_gain",
+               "hrtf_old_gain", "hrtf_coeffs", "hrtf_old_coeffs", "hrtf_delay",
+               "hrtf_old_delay", "wet_slot", "wet_active", "wet_tgt",
+               "send_filter_active", "send_filter_target",
+               "nfc_w0", "nfc_active")
+    _FIELDS = _EVOLVING + _CONFIG
+
+    def evolving_dict(self, device: torch.device) -> dict:
+        out = {k: _to_dev(getattr(self, k), device) for k in self._EVOLVING}
+        # -1 marks never-initialized interp filters host-side; device sees 0.
+        out["filter_counter"].clamp_(min=0)
+        return out
+
+    def clear_row(self, r: int) -> None:
+        self.active[r] = False
+        self.playing[r] = False
+        self.fade[r] = 0
+        self.dry_cur[r] = 0.0
+        self.dry_tgt[r] = 0.0
+        self.wet_cur[r] = 0.0
+        self.wet_tgt[r] = 0.0
+        self.filter_active[r] = False
+        self.filter_coeffs[r] = 0.0
+        self.filter_coeffs[r, :, 0] = 1.0
+        self.filter_target[r] = self.filter_coeffs[r]
+        self.filter_counter[r] = -1  # fresh filter: first update snaps
+        self.send_filter_counter[r] = 0
+        self.hrtf_gain[r] = 0.0
+        self.hrtf_old_gain[r] = 0.0
+        self.hrtf_coeffs[r] = 0.0
+        self.hrtf_old_coeffs[r] = 0.0
+        self.hrtf_delay[r] = 0
+        self.hrtf_old_delay[r] = 0
+        self.nfc_w0[r] = -1.0
+        self.nfc_active[r] = False
+
+
+class RenderDevice:
+    """A playback device rendering on one torch device (``"cpu"`` or
+    ``"cuda"``; ``"cuda"`` without a card raises)."""
+
+    def __init__(self, sample_rate: int = 48000,
+                 fmt_channels: DevFmtChannels = DevFmtChannels.STEREO,
+                 fmt_type: DevFmtType = DevFmtType.FLOAT,
+                 *, capacity: int = 256, num_aux_sends: int = 2,
+                 render_mode: panning.RenderMode | None = None,
+                 hq_decode: bool = True,
+                 ambi_order: int = 1,
+                 hrtf_path: str | None = None,
+                 loopback: bool = True,
+                 device: str | torch.device = "cpu") -> None:
+        from ..alc import config as alconf
+
+        self.torch_device = resolve_device(device)
+        self.sample_rate = int(sample_rate)
+        self.fmt_channels = fmt_channels
+        self.fmt_type = fmt_type
+        self.capacity = capacity
+        self.num_aux_sends = num_aux_sends
+        self.hrtf_store = None
+
+        stereo_encoding = None
+        if render_mode is None:
+            # Default stereo output pans pairwise (panning.cpp:1420); the
+            # stereo-encoding key selects UHJ, TSME or HRTF instead.
+            render_mode = (panning.RenderMode.PAIRWISE
+                           if fmt_channels == DevFmtChannels.STEREO
+                           else panning.RenderMode.NORMAL)
+            if fmt_channels == DevFmtChannels.STEREO:
+                enc = (alconf.config_value_str("", "stereo-encoding")
+                       or "").lower()
+                if enc in ("uhj", "tsme"):
+                    stereo_encoding = enc
+                    render_mode = panning.RenderMode.NORMAL
+                elif enc == "hrtf":
+                    render_mode = panning.RenderMode.HRTF
+        hrtf_full = True
+        if render_mode == panning.RenderMode.HRTF:
+            # InitHrtfPanning (panning.cpp:846-1138): "full" renders each
+            # voice through its own HRIRs; "ambi1".."ambi4" pan onto an
+            # ambisonic bus with a baked binaural decode.
+            mode_str = (alconf.config_value_str("", "hrtf-mode")
+                        or "full").lower()
+            if mode_str == "basic":   # deprecated alias (panning.cpp:1078)
+                mode_str = "ambi2"
+            if mode_str in ("ambi1", "ambi2", "ambi3", "ambi4"):
+                hrtf_full = False
+                ambi_order = int(mode_str[-1])
+            else:
+                ambi_order = 1
+        custom_decoder = self._custom_decoder(render_mode, fmt_channels,
+                                              alconf)
+        self.layout = panning.init_panning(
+            fmt_channels, self.sample_rate, hq_decode=hq_decode,
+            render_mode=render_mode, ambi_order=ambi_order,
+            xover_freq=700.0 if render_mode == panning.RenderMode.HRTF
+            else 400.0,
+            hrtf_full=hrtf_full, decoder=custom_decoder,
+            stereo_encoding=stereo_encoding)
+        self.n_dry = self.layout.n_dry
+        self.n_real = len(self.layout.real_channels) or self.n_dry
+
+        if render_mode == panning.RenderMode.HRTF:
+            # Enumerated + rate-resampled load (GetLoadedHrtf,
+            # core/hrtf.cpp:466-608); synthetic set when none is found.
+            store = hrtf_mod.load_hrtf(self.sample_rate, path=hrtf_path)
+            self.hrtf_store = (store if store is not None
+                               else hrtf_mod.make_synthetic_hrtf(
+                                   self.sample_rate))
+            log.trace("HRTF enabled: %s order, rate %d, ir %d", ambi_order,
+                      self.hrtf_store.sample_rate, self.hrtf_store.ir_size)
+
+        # Near-field compensation control distance (InitNearFieldCtrl,
+        # panning.cpp:276-300).  The voice params read avg_speaker_dist; the
+        # NFC filters themselves are ROADMAP A10.
+        self.avg_speaker_dist = 0.0
+        self.nfc_scale = float(np.clip(alconf.config_value_float(
+            "game_compat", "nfc-scale", 1.0), 0.0001, 10000.0))
+        if alconf.config_value_bool("decoder", "nfc", False):
+            ctrl = 0.0
+            if self.layout.mode == panning.RenderMode.HRTF:
+                ctrl = float(self.hrtf_store.field_distances[0])
+            elif custom_decoder is not None:
+                dists = custom_decoder.speaker_dists
+                pos = dists[dists > 0.0]
+                ctrl = (float(pos.mean()) if pos.size
+                        else alconf.config_value_float(
+                            "decoder", "speaker-dist", 1.0))
+            elif self.layout.uhj_output:
+                ctrl = alconf.config_value_float("uhj", "distance-ref", 2.0)
+            elif (self.layout.dec_hf is None
+                  and fmt_channels == DevFmtChannels.AMBI3D):
+                ctrl = alconf.config_value_float("decoder", "speaker-dist",
+                                                 0.0) or 0.0
+            if ctrl > 0.0:
+                self.avg_speaker_dist = float(np.clip(ctrl, 0.1, 10.0))
+
+        # Distance compensation (InitDistanceComp, panning.cpp:301-360):
+        # per-speaker whole-sample delay + level scale on the real outputs.
+        self._dist_comp = None
+        if (custom_decoder is not None
+                and custom_decoder.speaker_dists is not None
+                and alconf.config_value_bool("decoder", "distance-comp",
+                                             True)):
+            self._dist_comp = self._distance_comp_params(custom_decoder)
+
+        self.pool = BufferPool()
+        self.table = ParamTable(capacity, self.n_dry, num_aux_sends,
+                                MAX_AMBI_CHANNELS)
+        # Cross-thread protocol: the render thread and app threads
+        # serialize on this lock (the mutex analog of the reference's
+        # wait-free prop-swap discipline, alu.cpp:2009-2013).
+        self.lock = threading.RLock()
+        self._free_rows = list(range(capacity - 1, -1, -1))
+        self._bank = tables.weight_bank()          # host numpy
+        self._bank_dev = None                      # torch copy, on first use
+        self._taps = 4  # raised when voices use bsinc resamplers
+        self._cfg_dev = None
+        self._ev_dev = None   # device-evolved copy of the _EVOLVING fields
+        self._ev_fade = False  # host mirror of bool(_ev_dev["fade"].any())
+        self._cfg_has_resets = False
+        self._has_uhj_voices = False
+        self._pending_resets: set[int] = set()
+        self.contexts: list = []
+        self._state = self._init_state()
+        self._clock_samples = 0
+        self._carry: np.ndarray | None = None  # rendered-ahead frames (f32)
+
+        # BS2B crossfeed (panning.cpp:1421-1431): basic stereo, never on
+        # loopback devices.
+        self._bs2b = None
+        if (fmt_channels == DevFmtChannels.STEREO
+                and not loopback
+                and render_mode != panning.RenderMode.HRTF
+                and not self.layout.uhj_output):
+            cf = alconf.config_value_int("", "cf_level", 0) or 0
+            if 1 <= cf <= 6:
+                from openal_soft_tpu.core import bs2b as bs2b_mod
+                self._bs2b = bs2b_mod.Bs2bProcessor(cf, self.sample_rate)
+
+        # Output stage (alc/alc.cpp:1677-1763): dither for 8/16-bit output,
+        # limiter for integer formats, volume-adjust in dB.
+        depth = mastering.default_dither_depth(fmt_type.name)
+        if not alconf.config_value_bool("", "dither", True):
+            depth = 0
+        elif (dd := alconf.config_value_int("", "dither-depth", 0) or 0) > 0:
+            depth = int(np.clip(dd, 2, 24))
+        self.dither = (mastering.DitherState(depth) if depth > 0 else None)
+        self.limiter = None
+        lim_opt = alconf.config_value_str("", "output-limiter")
+        want_limiter = (fmt_type != DevFmtType.FLOAT
+                        if lim_opt is None
+                        else lim_opt.lower() in ("true", "yes", "on", "1"))
+        if want_limiter:
+            thr_db = mastering.limiter_threshold_db(fmt_type.name, depth)
+            self.limiter = mastering.Limiter(self.n_real,
+                                             float(self.sample_rate), thr_db)
+        vol_db = alconf.config_value_float("", "volume-adjust", 0.0) or 0.0
+        self._volume_scale = (float(10.0 ** (vol_db / 20.0))
+                              if vol_db else None)
+
+    @staticmethod
+    def _custom_decoder(render_mode, fmt_channels, alconf):
+        """Custom ambdec decoder for speaker layouts (aluInitRenderer,
+        panning.cpp:1236-1296): config key decoder/<layout> names it."""
+        if render_mode == panning.RenderMode.HRTF:
+            return None
+        keys = {
+            DevFmtChannels.QUAD: "quad", DevFmtChannels.X51: "surround51",
+            DevFmtChannels.X61: "surround61",
+            DevFmtChannels.X71: "surround71",
+            DevFmtChannels.X714: "surround714",
+            DevFmtChannels.X7144: "surround7144",
+            DevFmtChannels.X3D71: "3d71",
+        }
+        key = keys.get(fmt_channels)
+        if key is None:
+            return None
+        decopt = alconf.config_value_str("decoder", key)
+        if decopt is None and key == "3d71":
+            decopt = alconf.config_value_str("decoder", "surround3d71")
+        if not decopt:
+            return None
+        from openal_soft_tpu.core import ambdec as ambdec_mod
+        from openal_soft_tpu.core import helpers
+
+        decopt = helpers.find_data_file(decopt, ".ambdec", "presets") or decopt
+        conf = ambdec_mod.load_ambdec(decopt)
+        log.trace("Using %s decoder: %s", key, conf.description)
+        return ambdec_mod.make_decoder(conf, fmt_channels)
+
+    def _distance_comp_params(self, decoder):
+        dists = decoder.speaker_dists
+        maxdist = float(dists.max(initial=0.0))
+        if not maxdist > 0.0:
+            return None
+        scale = f32(self.sample_rate) / cparams.SPEED_OF_SOUND
+        delays = np.zeros(self.n_real, np.int64)
+        gains = np.ones(self.n_real, f32)
+        for ch, dist in zip(decoder.channels, dists):
+            idx = self.layout.channel_index.get(ch)
+            if idx is None or not dist > 0.0:
+                continue
+            delays[idx] = int(np.floor(f32((maxdist - dist) * scale)
+                                       + f32(0.5)))
+            gains[idx] = f32(dist / maxdist)
+        return delays, gains, [np.zeros(int(d), f32) for d in delays]
+
+    # --- row allocation ---
+
+    def alloc_rows(self, n: int) -> list[int]:
+        with self.lock:
+            if len(self._free_rows) < n:
+                raise RuntimeError(
+                    f"voice capacity exhausted: {n} rows requested, "
+                    f"{len(self._free_rows)} free of {self.capacity} "
+                    f"(raise the device's `capacity` or stop sources first)")
+            rows = [self._free_rows.pop() for _ in range(n)]
+            for r in rows:
+                self.table.clear_row(r)
+            self._pending_resets.update(rows)
+            self._cfg_dev = None
+            return rows
+
+    def free_rows(self, rows: list[int]) -> None:
+        with self.lock:
+            for r in rows:
+                self.table.clear_row(r)
+                self._free_rows.append(r)
+            self._cfg_dev = None
+
+    def set_taps(self, taps: int) -> None:
+        self._taps = max(self._taps, taps)
+
+    def _graph_gates(self) -> tuple:
+        """Host-known scene facts that prune the block path: no direct
+        filters, no send filters, nothing on the dry ambisonic bus."""
+        g = []
+        t = self.table
+        if not bool(t.filter_active[t.active].any()):
+            g.append("gate:nofilt")
+        if not bool(t.send_filter_active[t.active].any()):
+            g.append("gate:nosendfilt")
+        if (self.layout.mode == panning.RenderMode.HRTF
+                and not bool(np.any(t.dry_tgt[t.active]))):
+            g.append("gate:nodry")
+        return tuple(g)
+
+    # --- carried device state ---
+
+    def _init_state(self) -> dict:
+        L = self.capacity
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                       device=self.torch_device)
+        # The filter memories stay zero on the ported path; they are carried
+        # so that snapshots keep the JAX package's state layout.
+        state = {"filter_z": z(L, 2, 2),
+                 "send_filter_z": z(L, max(self.num_aux_sends, 1), 2, 2)}
+        if self.layout.mode == panning.RenderMode.HRTF:
+            state["hrtf_history"] = z(L, hrtf_mix.HIST)
+            state["hrtf_tail"] = z(128, 2)
+        return state
+
+    # --- what this slice renders ---
+
+    def _check_ported(self, gates: tuple, kind: str) -> None:
+        """Raise for a scene outside the ported path, naming its item."""
+        if self.layout.mode != panning.RenderMode.HRTF:
+            raise NotImplementedError(
+                "speaker, pairwise-stereo, UHJ/TSME and ambisonic output "
+                "(gain-ramped mix + decode): ROADMAP A3 and A11")
+        if self.avg_speaker_dist > 0.0:
+            raise NotImplementedError(
+                "near-field compensation: ROADMAP A10")
+        if self._has_uhj_voices:
+            raise NotImplementedError("UHJ/Super Stereo voices: ROADMAP A11")
+        if "gate:nosendfilt" not in gates:
+            raise NotImplementedError("effect slots and sends: ROADMAP A8")
+        if "gate:nofilt" not in gates:
+            raise NotImplementedError("direct-path filters: ROADMAP A9")
+        if "gate:nodry" not in gates:
+            raise NotImplementedError(
+                "the HRTF dry ambisonic bus (B-Format voices, ambiN HRTF "
+                "modes): ROADMAP slice 1, ops/mix.py + BandSplitterKernels")
+        if kind == "gen" and self.torch_device.type == "cuda":
+            raise NotImplementedError(
+                "general-pitch resampling on the card: ROADMAP A7")
+
+    # Largest blocks per resample call (the JAX package's super-block
+    # ladder); bounded here only by the int32 position math.
+    _RS_SUPER_BLOCKS = (16, 8, 4, 2)
+
+    def _rs_plan(self, T: int, n_blocks: int) -> tuple[str, int]:
+        """(kind, sb): ``"unit"`` when every active increment is exactly
+        1<<16 (the unit kernel), else ``"gen"`` (the plain resampler); sb
+        blocks share one resample and one HRTF contraction."""
+        inc = self.table.increment[self.table.active]
+        kind = ("unit" if bool(np.all(inc == 1 << MIXER_FRAC_BITS))
+                else "gen")
+        max_inc = int(inc.max()) if inc.size else 1 << MIXER_FRAC_BITS
+        for sb in self._RS_SUPER_BLOCKS:
+            if (n_blocks % sb == 0
+                    and (sb * T - 1) * max_inc + MIXER_FRAC_MASK < 1 << 31):
+                return kind, sb
+        return kind, 1
+
+    # --- the block path ---
+
+    def _resample(self, pool, cfg: dict, ev: dict, n: int, kind: str):
+        if kind == "unit":
+            return rs_unit.resample_unit(
+                pool, cfg["src_off"], cfg["src_len"], cfg["loop_start"],
+                cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
+                ev["pos_int"], cfg["rs_unit_w"], n)
+        if self._bank_dev is None:
+            self._bank_dev = {k: _to_dev(v, self.torch_device)
+                              for k, v in self._bank.items()}
+        return rs_ops.resample_voices(
+            pool, cfg["src_off"], cfg["src_len"], cfg["loop_start"],
+            cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
+            ev["pos_int"], ev["pos_frac"], cfg["increment"],
+            cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps)
+
+    @staticmethod
+    def _advance(cfg: dict, ev: dict, n: int) -> None:
+        """End-of-window evolution, in place: positions advance and looping
+        voices rebase into [loop_start, loop_end) (congruent mod the loop
+        length, so reads are unchanged), setting has_wrapped on a wrap —
+        the same integer math as the host mirror (Voice.advance).  Filter
+        schedules stay converged and fades expire."""
+        pi2, pf2 = rs_ops.advance_positions(ev["pos_int"], ev["pos_frac"],
+                                            cfg["increment"], n)
+        ls, le = cfg["loop_start"], cfg["loop_end"]
+        rebase = cfg["has_loop"] & (pi2 >= le)
+        ll = torch.clamp(le - ls, min=1)
+        ev["pos_int"].copy_(torch.where(
+            rebase, ls + torch.remainder(pi2 - ls, ll), pi2))
+        ev["pos_frac"].copy_(pf2)
+        ev["has_wrapped"] |= rebase
+        ev["filter_coeffs"].copy_(cfg["filter_target"])
+        ev["filter_counter"].zero_()
+        ev["fade"].zero_()
+
+    def _render_one(self, state: dict, ev: dict, cfg: dict, pool, T: int,
+                    kind: str, any_fade: bool) -> torch.Tensor:
+        """One block, per-block HRTF branch (gate:nofilt, gate:nodry):
+        returns out [2, T]; state and ev advance in place."""
+        x = self._resample(pool, cfg, ev, T, kind)
+        x = torch.where(cfg["active"][:, None], x, 0.0)
+        x_cat = torch.cat([state["hrtf_history"], x], dim=1)
+        g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
+        y_ext = hrtf_mix.hrtf_voices_accum(
+            x_cat, cfg["hrtf_coeffs"], cfg["hrtf_delay"], g_eff,
+            cfg["hrtf_old_coeffs"], cfg["hrtf_old_delay"],
+            cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T,
+            min(GAIN_FADE_SAMPLES, T), any_fade)
+        out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
+        state["hrtf_history"].copy_(x_cat[:, T:])
+        state["hrtf_tail"].copy_(new_tail)
+        state["filter_z"].zero_()
+        # Current dry gains land on their (zero) targets, as the 64-sample
+        # ramp would by block end.
+        ev["dry_cur"].copy_(torch.where(cfg["playing"][:, None],
+                                        cfg["dry_tgt"], 0.0))
+        self._advance(cfg, ev, T)
+        return out
+
+    def _render_super_block(self, state: dict, ev: dict, cfg: dict, pool,
+                            T: int, sb: int, kind: str,
+                            any_fade: bool) -> torch.Tensor:
+        """sb blocks as ONE resample + ONE [2*192, V] x [V, sb*T] contraction
+        + skew-sum + fold (the fused super-block HRTF branch): out [2, sb*T].
+
+        Every fade ramp spans the window's first fade_len samples and holds
+        after, exactly the per-block evolution, since fades are nonzero only
+        in the first block after a config upload.  x is not masked by
+        ``active``: the contraction folds the mask into the gains, and an
+        inactive row's history is cleared when the row is reset."""
+        W = sb * T
+        x_all = self._resample(pool, cfg, ev, W, kind)
+        g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
+        y_ext = hrtf_mix.hrtf_voices_accum_split(
+            state["hrtf_history"], x_all, cfg["hrtf_coeffs"],
+            cfg["hrtf_delay"], g_eff, cfg["hrtf_old_coeffs"],
+            cfg["hrtf_old_delay"], cfg["hrtf_old_gain"], ev["fade"],
+            cfg["active"], W, min(GAIN_FADE_SAMPLES, T), any_fade)
+        out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], W)
+        state["hrtf_history"].copy_(x_all[:, W - hrtf_mix.HIST:])
+        state["hrtf_tail"].copy_(new_tail)
+        state["filter_z"].zero_()
+        ev["dry_cur"].copy_(torch.where(cfg["playing"][:, None],
+                                        cfg["dry_tgt"], 0.0))
+        self._advance(cfg, ev, W)
+        return out
+
+    def _render_chunk(self, state: dict, ev: dict, cfg: dict, pool, T: int,
+                      n_blocks: int, plan: tuple[str, int], resets,
+                      any_fade: bool) -> torch.Tensor:
+        """n_blocks consecutive blocks: out [n_blocks, 2, T] on the device.
+
+        ``resets`` ([L] bool, or None) clears re-allocated rows' carried
+        memories first; ``any_fade`` is the host's knowledge that some row
+        fades in the first block."""
+        if resets is not None:
+            state["filter_z"].masked_fill_(resets[:, None, None], 0.0)
+            state["hrtf_history"].masked_fill_(resets[:, None], 0.0)
+            state["send_filter_z"].masked_fill_(resets[:, None, None, None],
+                                                0.0)
+        kind, sb = plan
+        out = torch.empty((n_blocks, 2, T), dtype=torch.float32,
+                          device=pool.device)
+        if sb > 1:
+            for i in range(n_blocks // sb):
+                o = self._render_super_block(state, ev, cfg, pool, T, sb,
+                                             kind, any_fade and i == 0)
+                out[i * sb:(i + 1) * sb] = o.reshape(2, sb, T).transpose(0, 1)
+        else:
+            for b in range(n_blocks):
+                out[b] = self._render_one(state, ev, cfg, pool, T, kind,
+                                          any_fade and b == 0)
+        return out
+
+    # --- the render loop ---
+
+    def render_samples(self, num_frames: int) -> np.ndarray:
+        """Render num_frames (alcRenderSamplesSOFT, alc/alc.cpp:3498).
+
+        Returns interleaved samples [num_frames, n_real] in the device
+        sample type.  The device renders in 128-frame granularity and
+        carries any overshoot to the next call."""
+        out = np.empty((num_frames, self.n_real), f32)
+        done = 0
+        with self.lock:
+            if self._carry is not None:
+                take = min(num_frames, self._carry.shape[0])
+                out[:take] = self._carry[:take]
+                self._carry = (self._carry[take:]
+                               if take < self._carry.shape[0] else None)
+                done += take
+            while done < num_frames:
+                done += self._render_dispatch(out, done, num_frames - done)
+            return self._convert_output(out)
+
+    _CHUNK_SIZES = (512, 256, 64, 8, 1)
+    _GRAIN = 128  # render granularity: the HRTF fold needs T >= 128
+
+    def _render_dispatch(self, out: np.ndarray, done: int,
+                         remaining: int) -> int:
+        for ctx in self.contexts:
+            ctx.process_updates()
+
+        # Dispatch horizon: the largest chunk that fits both the request
+        # and the next host-visible event.
+        T = min(-(-remaining // self._GRAIN) * self._GRAIN, BUFFER_LINE_SIZE)
+        n_blocks = 1
+        if T == BUFFER_LINE_SIZE:
+            horizon = min(remaining // T,
+                          min((ctx.event_horizon_blocks(T)
+                               for ctx in self.contexts), default=1 << 30))
+            for size in self._CHUNK_SIZES:
+                if size <= horizon:
+                    n_blocks = size
+                    break
+
+        if self._cfg_dev is None:
+            # The config (and the evolving fields) re-upload from the host
+            # table: every context's row mirror must be current.
+            for ctx in self.contexts:
+                if not ctx._packed_this_update:
+                    ctx._pack_block_fields(BUFFER_LINE_SIZE)
+                    ctx._packed_this_update = True
+            self._has_uhj_voices = any(
+                v.fmt_channels in _UHJ_FORMATS and v.rows
+                and v.state in (PlayState.PLAYING, PlayState.STOPPING)
+                for ctx in self.contexts for v in ctx.voices)
+            cfg = self._cfg_from_table()
+            mask = self._pending_resets_mask()
+            self._cfg_has_resets = bool(mask.any())   # host-known
+            cfg["reset_rows"] = _to_dev(mask, self.torch_device)
+            self._cfg_dev = cfg
+            # Evolving fields changed with the config; in steady state the
+            # device's own evolved copy equals the host mirror.
+            self._ev_dev = None
+        if self._ev_dev is None:
+            ev = self.table.evolving_dict(self.torch_device)
+            any_fade = bool(self.table.fade.any())
+        else:
+            ev, any_fade = self._ev_dev, self._ev_fade
+
+        plan = self._rs_plan(T, n_blocks)
+        self._check_ported(self._graph_gates(), plan[0])
+        resets = (self._cfg_dev["reset_rows"] if self._cfg_has_resets
+                  else None)
+        blocks = self._render_chunk(
+            self._state, ev, self._cfg_dev,
+            self.pool.device_array(self.torch_device), T, n_blocks, plan,
+            resets, any_fade)
+        self._cfg_has_resets = False   # the reset mask is consumed
+        self._ev_dev, self._ev_fade = ev, False
+        # Host bookkeeping overlaps the queued device work: the mirror
+        # advance does not read the outputs.
+        for ctx in self.contexts:
+            ctx.finish_chunk(T, n_blocks)
+        self._clock_samples += n_blocks * T
+        arr = blocks.cpu().numpy()                         # [n_blocks, C, T]
+
+        frames = n_blocks * T
+        flat = arr.transpose(0, 2, 1).reshape(frames, -1)
+        served = min(frames, remaining)
+        out[done:done + served] = flat[:served]
+        if served < frames:
+            self._carry = flat[served:].copy()
+        return served
+
+    def _cfg_from_table(self) -> dict:
+        """Upload the host ParamTable as the device config dict, with the
+        unit kernel's constant per-voice tap weights (valid whenever the
+        unit plan is selected: pos_frac is invariant at unit increment)."""
+        dev = self.torch_device
+        cfg = {k: _to_dev(getattr(self.table, k), dev)
+               for k in ParamTable._CONFIG if k != "nfc_w0"}
+        t = self.table
+        cfg["rs_unit_w"] = _to_dev(rs_unit.unit_weights_np(
+            self._bank, t.bank_row, t.sf, t.pos_frac, self._taps), dev)
+        return cfg
+
+    # --- checkpoint / resume ---
+
+    def snapshot(self) -> dict:
+        """Serializable checkpoint at a block boundary, in the layout of the
+        JAX package's RenderDevice.snapshot(): numpy ``state``, ``ev``,
+        ``table``, ``carry`` and ``clock``."""
+        with self.lock:
+            ev = (self._ev_dev if self._ev_dev is not None
+                  else self.table.evolving_dict(self.torch_device))
+            return {
+                "state": {k: _to_host(v) for k, v in self._state.items()},
+                "ev": {k: _to_host(v) for k, v in ev.items()},
+                "table": {k: np.asarray(getattr(self.table, k)).copy()
+                          for k in ParamTable._FIELDS},
+                "carry": None if self._carry is None else self._carry.copy(),
+                "clock": self._clock_samples,
+            }
+
+    def restore(self, snap: dict) -> None:
+        """Continue a snapshot — this port's or the JAX package's
+        RenderDevice.snapshot() — in this identically configured device."""
+        with self.lock:
+            if any(isinstance(v, dict) for v in snap["state"].values()):
+                raise NotImplementedError(
+                    "snapshot holds effect-slot state: ROADMAP A8")
+            for k, v in snap["table"].items():
+                getattr(self.table, k)[...] = v
+            dev = self.torch_device
+            self._state = {k: _to_dev(v, dev)
+                           for k, v in snap["state"].items()}
+            self._ev_dev = {k: _to_dev(v, dev) for k, v in snap["ev"].items()}
+            self._ev_fade = bool(np.any(snap["ev"]["fade"]))
+            self._carry = (None if snap["carry"] is None
+                           else np.array(snap["carry"], f32))
+            self._clock_samples = int(snap["clock"])
+            self._cfg_dev = None
+
+    def clock_ns(self) -> int:
+        """ALC_DEVICE_CLOCK_SOFT: nanoseconds of samples rendered."""
+        return int(self._clock_samples * 1_000_000_000 // self.sample_rate)
+
+    def clock_latency_ns(self) -> tuple[int, int]:
+        """ALC_DEVICE_CLOCK_LATENCY_SOFT: (clock, latency) — the loopback
+        latency is the rendered-ahead carry."""
+        carry = self._carry.shape[0] if self._carry is not None else 0
+        return self.clock_ns(), int(carry * 1_000_000_000
+                                    // self.sample_rate)
+
+    def mark_config_dirty(self) -> None:
+        self._cfg_dev = None
+
+    def _pending_resets_mask(self) -> np.ndarray:
+        mask = np.zeros(self.capacity, bool)
+        if self._pending_resets:
+            mask[list(self._pending_resets)] = True
+            self._pending_resets.clear()
+        return mask
+
+    # --- host output stage ---
+
+    def _apply_distance_comp(self, x: np.ndarray) -> np.ndarray:
+        """Per-channel delay + gain (DistanceComp::process analog), carrying
+        each channel's last `delay` samples across calls."""
+        delays, gains, bufs = self._dist_comp
+        n = x.shape[0]
+        for c in range(x.shape[1]):
+            d = int(delays[c])
+            if d == 0:
+                if gains[c] != 1.0:
+                    x[:, c] = (x[:, c] * gains[c]).astype(f32)
+                continue
+            col = x[:, c].copy()
+            if n >= d:
+                x[d:, c] = col[:n - d]
+                x[:d, c] = bufs[c]
+                bufs[c][:] = col[n - d:]
+            else:
+                x[:, c] = bufs[c][:n]
+                bufs[c][:d - n] = bufs[c][n:]
+                bufs[c][d - n:] = col
+            x[:, c] = (x[:, c] * gains[c]).astype(f32)
+        return x
+
+    def _convert_output(self, x: np.ndarray) -> np.ndarray:
+        """Limiter -> dither -> Write<T> quantization (alu.cpp:2422-2438),
+        in <=1024-frame blocks on the host output."""
+        if self._bs2b is not None:
+            left, right = self._bs2b.cross_feed(x[:, 0], x[:, 1])
+            x = np.stack([left, right], axis=1)
+        if self._dist_comp is not None:
+            x = self._apply_distance_comp(np.ascontiguousarray(x))
+        if self._volume_scale is not None:
+            x = (x * f32(self._volume_scale)).astype(f32)
+        if self.limiter is not None:
+            x = np.ascontiguousarray(x)
+            for i in range(0, x.shape[0], BUFFER_LINE_SIZE):
+                self.limiter.process(x[i:i + BUFFER_LINE_SIZE])
+        if self.dither is not None:
+            parts = [self.dither.apply(x[i:i + BUFFER_LINE_SIZE])
+                     for i in range(0, x.shape[0], BUFFER_LINE_SIZE)]
+            x = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        if self.fmt_type == DevFmtType.FLOAT:
+            return x
+        # SampleConv<T> (alu.cpp:2320-2346): clamp then round-nearest-even.
+        if self.fmt_type == DevFmtType.SHORT:
+            return np.rint(np.clip(x * f32(32768.0), -32768.0, 32767.0)
+                           ).astype(np.int16)
+        if self.fmt_type == DevFmtType.UBYTE:
+            return (np.rint(np.clip(x * f32(128.0), -128.0, 127.0)
+                            ).astype(np.int16) + 128).astype(np.uint8)
+        if self.fmt_type == DevFmtType.BYTE:
+            return np.rint(np.clip(x * f32(128.0), -128.0, 127.0)
+                           ).astype(np.int8)
+        if self.fmt_type == DevFmtType.INT:
+            return np.rint(np.clip(x * f32(2147483648.0), -2147483648.0,
+                                   2147483520.0)).astype(np.int64
+                                                         ).astype(np.int32)
+        raise NotImplementedError(self.fmt_type)

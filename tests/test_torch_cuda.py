@@ -1,0 +1,55 @@
+"""Port tests that need the card (marker ``cuda``); they skip without one.
+
+Run them on a machine with an NVIDIA GPU, from the repository root:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: tests/conftest.py configures JAX, which a machine set
+up for the port need not have.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("taps", [4, 24, 48])
+@pytest.mark.parametrize("W", [128, 1024, 16384])
+def test_unit_kernel_equals_plain_version(cuda, taps, W):
+    args = chip_smoke.unit_case(np.random.default_rng(taps * W), 256, W,
+                                taps, cuda)
+    before = t_unit.resample_unit.launches
+    got = t_unit.resample_unit(*args, W)
+    torch.cuda.synchronize()
+    assert t_unit.resample_unit.launches == before + 1
+    assert torch.equal(got, t_unit.resample_unit_ref(*args, W))
+
+
+def test_wrapper_rejects_bad_inputs(cuda):
+    args = list(chip_smoke.unit_case(np.random.default_rng(0), 8, 128, 4,
+                                     cuda))
+    args[-1] = args[-1].double()                   # weights must be f32
+    with pytest.raises(TypeError):
+        t_unit.resample_unit(*args, 128)
+
+
+def test_port_on_the_card_matches_the_cpu(cuda):
+    g = chip_smoke.best_case_scene(64, 64, "cuda")
+    c = chip_smoke.best_case_scene(64, 64, "cpu")
+    before = t_unit.resample_unit.launches
+    for n in (8192, 4096, 100):
+        assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
+            <= chip_smoke.PARITY_TOL
+    assert t_unit.resample_unit.launches > before

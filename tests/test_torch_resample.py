@@ -1,0 +1,168 @@
+"""The port's resamplers against the JAX package's on the same numpy inputs.
+
+Bit-equality with JAX on the CPU is not reachable: XLA:CPU contracts each
+`a + b*c` of the weight and tap arithmetic into a fused multiply-add (one
+rounding), while torch rounds the product and the sum separately.  The
+measured gap is 4.8e-7 max abs for unit-scale samples (V=32, n=256, every
+tier); the bound held here is 2e-6, a few float32 ulps of the tap sums.
+Within the port, the unit-increment plain version equals the general
+resampler at unit increment bit for bit (the claim the kernel relies on).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from openal_soft_tpu.constants import MIXER_FRAC_ONE, Resampler
+from openal_soft_tpu.ops import resample as j_rs
+from openal_soft_tpu.ops import tables
+from openal_soft_tpu.ops.pallas import resample_unit as j_unit
+from openal_soft_tpu_torch.ops import resample as t_rs
+from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
+
+FMA_BOUND = 2e-6
+V, N = 32, 256
+TIERS = [Resampler.POINT, Resampler.LINEAR, Resampler.SPLINE,
+         Resampler.GAUSSIAN, Resampler.BSINC12, Resampler.FAST_BSINC24,
+         Resampler.BSINC24, Resampler.BSINC48]
+BANK = tables.weight_bank()
+
+
+def _voices(seed: int, resampler: Resampler, unit: bool):
+    """V voices over a random pool: loop seams inside the window, wrapped
+    (backward) history, non-looping end clamps, pre-start silence and
+    empty sources, at mixed pitch up to 10x (or unit increment)."""
+    rng = np.random.default_rng(seed)
+    P = 40000
+    pool = rng.standard_normal(P).astype(np.float32)
+    src_len = rng.integers(300, 3000, V).astype(np.int32)
+    src_len[:2] = 0
+    src_off = rng.integers(8, P - 3000, V).astype(np.int32)
+    loop_start = rng.integers(0, 200, V).astype(np.int32)
+    loop_end = (loop_start + rng.integers(1, 2500, V)).astype(np.int32)
+    has_loop = np.arange(V) % 3 != 0
+    has_wrapped = has_loop & (np.arange(V) % 2 == 0)
+    pos_int = rng.integers(-200, 2500, V).astype(np.int32)
+    pos_int[2:6] = loop_end[2:6] - 40          # seam inside the window
+    pos_int[6:8] = loop_start[6:8]             # history wraps backward
+    pos_frac = rng.integers(0, MIXER_FRAC_ONE, V).astype(np.int32)
+    if unit:
+        inc = np.full(V, MIXER_FRAC_ONE, np.int32)
+    else:
+        inc = rng.integers(MIXER_FRAC_ONE // 4, 10 * MIXER_FRAC_ONE,
+                           V).astype(np.int32)
+    rows_sf = [tables.prepare_voice_resampler(resampler, int(i), int(f))
+               for i, f in zip(inc, pos_frac)]
+    bank_row = np.array([r for r, _ in rows_sf], np.int32)
+    sf = np.array([s for _, s in rows_sf], np.float32)
+    return (pool, src_off, src_len, loop_start, loop_end, has_loop,
+            has_wrapped, pos_int, pos_frac, inc, bank_row, sf)
+
+
+def _jax_resample(args, taps: int, n: int = N) -> np.ndarray:
+    fn = jax.jit(lambda *a: j_rs.resample_voices(*a, BANK, n, taps))
+    return np.asarray(fn(*[jnp.asarray(a) for a in args]))
+
+
+def _torch_args(args):
+    return [torch.tensor(a) for a in args]
+
+
+def _torch_bank():
+    return {k: torch.tensor(v) for k, v in BANK.items()}
+
+
+@pytest.mark.parametrize("resampler", TIERS, ids=lambda r: r.name)
+def test_resample_voices_matches_jax(resampler):
+    taps = tables.resampler_max_taps(resampler)
+    args = _voices(1, resampler, unit=False)
+    want = _jax_resample(args, taps)
+    got = t_rs.resample_voices(*_torch_args(args), _torch_bank(), N,
+                               taps).numpy()
+    assert got.shape == want.shape == (V, N)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= FMA_BOUND
+
+
+@pytest.mark.parametrize("taps", [4, 24, 48])
+def test_unit_ref_equals_general_resampler_bitwise(taps):
+    """At increment 1<<16 the unit plain version and the port's general
+    resampler do the same f32 operations in the same order."""
+    resampler = {4: Resampler.SPLINE, 24: Resampler.BSINC24,
+                 48: Resampler.BSINC48}[taps]
+    args = _voices(2, resampler, unit=True)
+    (pool, src_off, src_len, ls, le, hl, hw, pos_int, pos_frac, inc,
+     bank_row, sf) = args
+    general = t_rs.resample_voices(*_torch_args(args), _torch_bank(), N,
+                                   taps)
+    w = t_unit.unit_weights_np(BANK, bank_row, sf, pos_frac, taps)
+    t = _torch_args((pool, src_off, src_len, ls, le, hl, hw, pos_int))
+    unit = t_unit.resample_unit_ref(*t, torch.tensor(w), N)
+    np.testing.assert_array_equal(unit.numpy(), general.numpy())
+    # The wrapper takes a CPU tensor to the plain version, not the kernel.
+    launches = t_unit.resample_unit.launches
+    wrapped = t_unit.resample_unit(*t, torch.tensor(w), N)
+    np.testing.assert_array_equal(wrapped.numpy(), unit.numpy())
+    assert t_unit.resample_unit.launches == launches
+
+
+@pytest.mark.parametrize("taps", [4, 24])
+def test_unit_ref_matches_jax_at_unit_increment(taps):
+    resampler = {4: Resampler.SPLINE, 24: Resampler.BSINC24}[taps]
+    args = _voices(3, resampler, unit=True)
+    want = _jax_resample(args, taps)
+    (pool, src_off, src_len, ls, le, hl, hw, pos_int, pos_frac, _inc,
+     bank_row, sf) = args
+    w = t_unit.unit_weights_np(BANK, bank_row, sf, pos_frac, taps)
+    got = t_unit.resample_unit_ref(
+        *_torch_args((pool, src_off, src_len, ls, le, hl, hw, pos_int)),
+        torch.tensor(w), N).numpy()
+    assert np.abs(got - want).max() <= FMA_BOUND
+
+
+@pytest.mark.parametrize("taps", [4, 12, 48])
+def test_unit_weights_match_reference(taps):
+    rng = np.random.default_rng(4)
+    bank_row = rng.integers(0, BANK["fil"].shape[0], 64).astype(np.int32)
+    sf = rng.random(64).astype(np.float32)
+    pos_frac = rng.integers(0, MIXER_FRAC_ONE, 64).astype(np.int32)
+    np.testing.assert_array_equal(
+        t_unit.unit_weights_np(BANK, bank_row, sf, pos_frac, taps),
+        j_unit.unit_weights_np(BANK, bank_row, sf, pos_frac, taps))
+
+
+def test_positions_and_advance_match_jax():
+    rng = np.random.default_rng(5)
+    pos_int = rng.integers(-1000, 100000, V).astype(np.int32)
+    pos_frac = rng.integers(0, MIXER_FRAC_ONE, V).astype(np.int32)
+    inc = rng.integers(1, 10 * MIXER_FRAC_ONE, V).astype(np.int32)
+    jp, jf = j_rs.positions(jnp.asarray(pos_frac), jnp.asarray(inc), 1024)
+    tp, tf = t_rs.positions(torch.tensor(pos_frac), torch.tensor(inc), 1024)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    ji, jfr = j_rs.advance_positions(jnp.asarray(pos_int),
+                                     jnp.asarray(pos_frac), jnp.asarray(inc),
+                                     jnp.int32(1024))
+    ti, tfr = t_rs.advance_positions(torch.tensor(pos_int),
+                                     torch.tensor(pos_frac),
+                                     torch.tensor(inc), 1024)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tfr.numpy(), np.asarray(jfr))
+
+
+def test_resolve_source_index_matches_jax():
+    rng = np.random.default_rng(6)
+    s = rng.integers(-3000, 6000, (V, 64)).astype(np.int32)
+    ls = rng.integers(0, 500, V).astype(np.int32)
+    le = (ls + rng.integers(1, 1000, V)).astype(np.int32)
+    hl = rng.random(V) < 0.5
+    hw = rng.random(V) < 0.5
+    ln = rng.integers(0, 2000, V).astype(np.int32)
+    ji, jv = j_rs.resolve_source_index(*[jnp.asarray(a) for a in
+                                         (s, ls, le, hl, hw, ln)])
+    ti, tv = t_rs.resolve_source_index(*[torch.tensor(a) for a in
+                                         (s, ls, le, hl, hw, ln)])
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
