@@ -1,7 +1,8 @@
 """Torch device resolution and float32 matmul precision.
 
-The device is always the caller's choice: ``"cuda"`` without a usable card
-raises instead of quietly running on the CPU.
+The default is the card, ``"cuda"``; the CPU must be asked for with
+``"cpu"``.  ``"cuda"`` without a usable card raises instead of quietly
+running on the CPU.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device: str | torch.device = "cpu") -> torch.device:
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The torch.device to render on: ``cpu`` or ``cuda[:n]``, never a guess.
 
     Also pins float32 contractions to full precision, process-wide and

@@ -10,10 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from openal_soft_tpu.core.devformat import (AmbiLayout, AmbiScaling,
-                                            FmtChannels, FmtType,
-                                            channels_from_fmt,
-                                            decode_to_float32)
+from ..core.devformat import (AmbiLayout, AmbiScaling, FmtChannels, FmtType,
+                              channels_from_fmt, decode_to_float32)
 from .adpcm import decode_ima4, decode_msadpcm
 
 _FMT_CHANNELS = {
@@ -112,7 +110,7 @@ class Buffer:
         (alc/context.py:_feed_callbacks)."""
         fmt = _FMT_CHANNELS[channels] if isinstance(channels, str) else channels
         styp = FmtType(sample_type) if isinstance(sample_type, str) else sample_type
-        from openal_soft_tpu.core.devformat import is_ambisonic
+        from ..core.devformat import is_ambisonic
         nch = channels_from_fmt(fmt, 1 if is_ambisonic(fmt) else 0)
         self.fmt_channels = fmt
         self.sample_rate = int(sample_rate)

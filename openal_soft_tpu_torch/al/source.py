@@ -12,12 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from openal_soft_tpu.constants import MIXER_FRAC_BITS
-from openal_soft_tpu.core import panning
-from openal_soft_tpu.core.devformat import (AmbiLayout, AmbiScaling,
-                                            FmtChannels, is_ambisonic)
-from openal_soft_tpu.core.voice import BufferItem, PlayState, Voice, VoiceProps
-from openal_soft_tpu.ops import tables
+from ..constants import MIXER_FRAC_BITS
+from ..core import panning
+from ..core.devformat import (AmbiLayout, AmbiScaling, FmtChannels,
+                              is_ambisonic)
+from ..core.voice import BufferItem, PlayState, Voice, VoiceProps
+from ..ops import tables
 
 from ..alc.context import Context, VChange, VoiceChange
 from .buffer import Buffer

@@ -1,9 +1,9 @@
 """The rendering context: voices, listener, and the per-block update cycle.
 
 Port of openal_soft_tpu/alc/context.py.  The context is host code; it
-differs from the reference only in its imports (the shared host modules of
-openal_soft_tpu, the port's own al/ objects) and in raising
-NotImplementedError for effect slots and effects (ROADMAP A8).
+differs from the reference only in its imports (the port's own copies of
+the host modules and its al/ objects) and in raising NotImplementedError
+for effect slots and effects (ROADMAP A8).
 
 Host analog of ContextBase + the parameter-update half of ProcessContexts
 (alc/alu.cpp:2147-2168): voice changes drain at block boundaries, dirty
@@ -21,10 +21,9 @@ import enum
 
 import numpy as np
 
-from openal_soft_tpu.constants import (GAIN_FADE_SAMPLES, MIXER_FRAC_BITS,
-                                      MIXER_FRAC_MASK)
-from openal_soft_tpu.core import context as cparams
-from openal_soft_tpu.core.voice import PlayState, Voice
+from ..constants import GAIN_FADE_SAMPLES, MIXER_FRAC_BITS, MIXER_FRAC_MASK
+from ..core import context as cparams
+from ..core.voice import PlayState, Voice
 
 from ..ops import filters as f_ops
 
@@ -420,8 +419,8 @@ class Context:
         pool segment, and compacts the segment as the voice advances.  A
         short or empty return marks end-of-stream; the voice then ends at
         the final fill count through the normal queue logic."""
-        from openal_soft_tpu.constants import MAX_RESAMPLER_PADDING
-        from openal_soft_tpu.core.devformat import decode_to_float32
+        from ..constants import MAX_RESAMPLER_PADDING
+        from ..core.devformat import decode_to_float32
 
         pool = self.device.pool
         for v in self.voices:

@@ -3,15 +3,16 @@
 The loopback device is the deterministic render interface
 (alc/alc.cpp:3393 alcLoopbackOpenDeviceSOFT + :3498 alcRenderSamplesSOFT):
 no thread, the app pulls sample blocks.  ``device`` picks the torch device
-the renderer runs on; it defaults to the CPU and never changes on its own.
+the renderer runs on; it defaults to the card (``"cuda"``, which raises
+without one) and never changes on its own.
 """
 
 from __future__ import annotations
 
 import torch
 
-from openal_soft_tpu.core import panning
-from openal_soft_tpu.core.devformat import DevFmtChannels, DevFmtType
+from ..core import panning
+from ..core.devformat import DevFmtChannels, DevFmtType
 
 from ..core.device import RenderDevice
 from .context import Context
@@ -45,7 +46,7 @@ class LoopbackDevice(RenderDevice):
                  sample_type: str = "float32", *, hrtf: bool = False,
                  capacity: int = 256, num_aux_sends: int = 2,
                  ambi_order: int = 1,
-                 device: str | torch.device = "cpu") -> None:
+                 device: str | torch.device = "cuda") -> None:
         mode = panning.RenderMode.HRTF if hrtf else None
         super().__init__(frequency, _CHANNELS[channels], _TYPES[sample_type],
                          capacity=capacity, num_aux_sends=num_aux_sends,

@@ -28,20 +28,20 @@ import threading
 import numpy as np
 import torch
 
-from openal_soft_tpu.constants import (
+from ..constants import (
     BUFFER_LINE_SIZE,
     GAIN_FADE_SAMPLES,
     MAX_AMBI_CHANNELS,
     MIXER_FRAC_BITS,
     MIXER_FRAC_MASK,
 )
-from openal_soft_tpu.core import context as cparams
-from openal_soft_tpu.core import hrtf as hrtf_mod
-from openal_soft_tpu.core import logging as log
-from openal_soft_tpu.core import mastering, panning
-from openal_soft_tpu.core.devformat import DevFmtChannels, DevFmtType, FmtChannels
-from openal_soft_tpu.core.voice import PlayState
-from openal_soft_tpu.ops import tables
+from ..core import context as cparams
+from ..core import hrtf as hrtf_mod
+from ..core import logging as log
+from ..core import mastering, panning
+from ..core.devformat import DevFmtChannels, DevFmtType, FmtChannels
+from ..core.voice import PlayState
+from ..ops import tables
 
 from .._device import resolve_device
 from ..ops import hrtf_mix
@@ -224,8 +224,8 @@ class ParamTable:
 
 
 class RenderDevice:
-    """A playback device rendering on one torch device (``"cpu"`` or
-    ``"cuda"``; ``"cuda"`` without a card raises)."""
+    """A playback device rendering on one torch device: ``"cuda"`` by
+    default (raises without a card), or ``"cpu"`` when asked for."""
 
     def __init__(self, sample_rate: int = 48000,
                  fmt_channels: DevFmtChannels = DevFmtChannels.STEREO,
@@ -236,7 +236,7 @@ class RenderDevice:
                  ambi_order: int = 1,
                  hrtf_path: str | None = None,
                  loopback: bool = True,
-                 device: str | torch.device = "cpu") -> None:
+                 device: str | torch.device = "cuda") -> None:
         from ..alc import config as alconf
 
         self.torch_device = resolve_device(device)
@@ -363,7 +363,7 @@ class RenderDevice:
                 and not self.layout.uhj_output):
             cf = alconf.config_value_int("", "cf_level", 0) or 0
             if 1 <= cf <= 6:
-                from openal_soft_tpu.core import bs2b as bs2b_mod
+                from ..core import bs2b as bs2b_mod
                 self._bs2b = bs2b_mod.Bs2bProcessor(cf, self.sample_rate)
 
         # Output stage (alc/alc.cpp:1677-1763): dither for 8/16-bit output,
@@ -409,8 +409,8 @@ class RenderDevice:
             decopt = alconf.config_value_str("decoder", "surround3d71")
         if not decopt:
             return None
-        from openal_soft_tpu.core import ambdec as ambdec_mod
-        from openal_soft_tpu.core import helpers
+        from ..core import ambdec as ambdec_mod
+        from ..core import helpers
 
         decopt = helpers.find_data_file(decopt, ".ambdec", "presets") or decopt
         conf = ambdec_mod.load_ambdec(decopt)

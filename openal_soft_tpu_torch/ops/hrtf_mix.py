@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from openal_soft_tpu.constants import (
+from ..constants import (
     GAIN_SILENCE_THRESHOLD,
     HRIR_LENGTH,
     HRTF_HISTORY_LENGTH,

@@ -25,7 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
-from openal_soft_tpu.constants import MIXER_FRAC_BITS, RESAMPLE_TAPS
+from ...constants import MIXER_FRAC_BITS, RESAMPLE_TAPS
 
 from .. import resample as rs_ops
 

@@ -7,7 +7,7 @@ bsinc12/24/48) and the spec that the unit-increment kernel
     out[v, i] = sum_j  w[v, phase(v,i), j] * src[v, pos(v,i) + j - taps/2 + 1]
 
 with ``w = (fil + sf*scd) + pf*(phd + sf*spd)`` rows of the global weight
-bank (``openal_soft_tpu.ops.tables``), in the reference's f32 op order.
+bank (``ops/tables.py``), in the reference's f32 op order.
 
 Differences from the JAX form, none of which changes a value:
 
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from openal_soft_tpu.constants import (
+from ..constants import (
     MIXER_FRAC_BITS,
     MIXER_FRAC_MASK,
     RESAMPLE_TAPS,

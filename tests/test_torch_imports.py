@@ -1,4 +1,4 @@
-"""The port imports and renders without JAX."""
+"""The port imports and renders without JAX and without the JAX package."""
 
 import pathlib
 import re
@@ -7,6 +7,8 @@ import sys
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "openal_soft_tpu_torch"
 ROOT = PKG.parent
+REFERENCE_IMPORT = re.compile(
+    r"^\s*(from|import)\s+openal_soft_tpu(\.|\s|$)", re.MULTILINE)
 
 
 def _port_modules() -> list[str]:
@@ -20,30 +22,38 @@ def _port_modules() -> list[str]:
     return mods
 
 
-_BLOCKED = r"""
-import importlib, sys
-sys.modules["jax"] = None          # any `import jax` now raises ImportError
-for name in sys.argv[1:]:
-    importlib.import_module(name)
-# Render a small HRTF scene: the shared host modules read the config at
-# run time, which must not reach the JAX render path either.
+# A small scene: pitched HRTF voices, rendered on the CPU through the fused
+# and per-block paths.
+_SCENE = r"""
 import numpy as np
 from openal_soft_tpu_torch.alc.device import LoopbackDevice
-dev = LoopbackDevice(capacity=4, hrtf=True)
+dev = LoopbackDevice(capacity=4, hrtf=True, device="cpu")
 ctx = dev.create_context()
 buf = ctx.create_buffer()
 buf.set_data((0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
              "mono", "float32", 48000)
-src = ctx.create_source()
-src.buffer(buf)
-src.looping = True
-src.set("position", (1.0, 0.0, -1.0))
-src.play()
-out = dev.render_samples(2048)
-assert out.shape == (2048, 2) and np.isfinite(out).all() and out.any()
+for pitch in (0.7, 1.6):
+    src = ctx.create_source()
+    src.buffer(buf)
+    src.looping = True
+    src.set("position", (1.0, 0.0, -1.0))
+    src.set("pitch", pitch)
+    src.play()
+out = np.concatenate([dev.render_samples(4096), dev.render_samples(1024)])
+assert out.shape == (5120, 2) and np.isfinite(out).all() and out.any()
+"""
+
+_BLOCKED = r"""
+import importlib, sys
+sys.modules["jax"] = None              # any `import jax` now raises
+sys.modules["openal_soft_tpu"] = None  # and so does the JAX package
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+""" + _SCENE + r"""
 loaded = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "jaxlib")))
-assert loaded == ["jax"], loaded          # only the blocking None entry
+                if m in ("jax", "openal_soft_tpu")
+                or m.startswith(("jax.", "jaxlib", "openal_soft_tpu.")))
+assert loaded == ["jax", "openal_soft_tpu"], loaded   # the blocking entries
 print("ok")
 """
 
@@ -67,27 +77,25 @@ def test_port_sources_never_import_jax():
     assert offenders == []
 
 
+def test_port_sources_never_import_the_jax_package():
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if REFERENCE_IMPORT.search(p.read_text())]
+    offenders += [name for name in ("chip_smoke.py",)
+                  if REFERENCE_IMPORT.search((ROOT / name).read_text())]
+    assert offenders == []
+    # The pattern does catch such a line.
+    assert REFERENCE_IMPORT.search("from openal_soft_tpu.core import hrtf")
+    assert REFERENCE_IMPORT.search("  import openal_soft_tpu")
+    assert not REFERENCE_IMPORT.search("import openal_soft_tpu_torch")
+
+
 _INSTALLED = r"""
 import sys
-import numpy as np
 import openal_soft_tpu_torch
-from openal_soft_tpu_torch.alc.device import LoopbackDevice
-dev = LoopbackDevice(capacity=4, hrtf=True)
-ctx = dev.create_context()
-buf = ctx.create_buffer()
-buf.set_data((0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
-             "mono", "float32", 48000)
-src = ctx.create_source()
-src.buffer(buf)
-src.looping = True
-src.play()
-assert dev.render_samples(2048).any()
-assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-# The reference package still resolves through its lazily loaded alc.
-import openal_soft_tpu.alc as alc
-from openal_soft_tpu.alc import config, LoopbackDevice as JaxLoopback
-assert JaxLoopback.__module__ == "openal_soft_tpu.alc.device"
-assert alc.context.Context is alc.Context
+""" + _SCENE + r"""
+assert not [m for m in sys.modules
+            if m in ("jax", "openal_soft_tpu")
+            or m.startswith(("jax.", "openal_soft_tpu."))]
 print("ok")
 """
 

@@ -8,6 +8,7 @@ summation order (matmul blocking) and in XLA:CPU's FMA contraction
 (tests/test_torch_resample.py).
 """
 
+import functools
 import pathlib
 
 import numpy as np
@@ -15,12 +16,14 @@ import pytest
 import torch
 
 from openal_soft_tpu.alc.device import LoopbackDevice as JaxLoopback
-from openal_soft_tpu_torch.alc.device import LoopbackDevice as TorchLoopback
+from openal_soft_tpu_torch.alc.device import LoopbackDevice as _TorchLoopback
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 RATE = 48000
 TOL = 1e-5
+# The port renders on the card unless asked for the CPU.
+TorchLoopback = functools.partial(_TorchLoopback, device="cpu")
 
 
 def _scene(cls, n_voices: int = 24, n_tones: int = 8, pitched: bool = False):
@@ -122,10 +125,14 @@ def test_hrtf_golden_through_the_port(name):
 
 
 def test_cuda_device_without_a_card_raises():
+    """The default device is the card: without one, the default raises
+    like an explicit "cuda" (and nothing falls back to the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="cuda"):
-        TorchLoopback(hrtf=True, capacity=4, device="cuda")
+        _TorchLoopback(hrtf=True, capacity=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        _TorchLoopback(hrtf=True, capacity=4, device="cuda")
 
 
 def test_unported_branches_raise():
