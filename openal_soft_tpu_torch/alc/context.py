@@ -2,8 +2,7 @@
 
 Port of openal_soft_tpu/alc/context.py.  The context is host code; it
 differs from the reference only in its imports (the port's own copies of
-the host modules and its al/ objects) and in raising NotImplementedError
-for effect slots and effects (ROADMAP A8).
+the host modules and its al/, core/ and effects/ objects).
 
 Host analog of ContextBase + the parameter-update half of ProcessContexts
 (alc/alu.cpp:2147-2168): voice changes drain at block boundaries, dirty
@@ -173,10 +172,24 @@ class Context:
         return src
 
     def create_aux_slot(self):
-        raise NotImplementedError("effect slots: ROADMAP A8")
+        from ..al.error import ALError
+        from ..core.effectslot import EffectSlot
+        from . import config as alconf
+
+        limit = alconf.config_value_int("", "slots", 64) or 64
+        if len(self.aux_slots) >= max(limit, 1):
+            raise ALError(0xA005,     # AL_OUT_OF_MEMORY (alAuxiliaryEffect-
+                          "effect slot limit reached")   # Slot.cpp:122)
+        slot = EffectSlot(self._new_id(), self)
+        self.aux_slots[slot.id] = slot
+        return slot
 
     def create_effect(self, effect_type: str = "null"):
-        raise NotImplementedError("effects: ROADMAP A8")
+        from ..al.effect import Effect
+
+        eff = Effect(self._new_id(), effect_type)
+        self.effects[eff.id] = eff
+        return eff
 
     def create_filter(self, filter_type: str = "null"):
         from ..al.filter import Filter

@@ -4,15 +4,20 @@ The whole voice population lives in one structure-of-arrays param table
 (host numpy), and each dispatch renders ``n_blocks`` blocks for every voice
 at once on the chosen torch device:
 
-    resample (unit kernel or plain gather) -> HRTF contraction (matmul)
-    -> skew-sum -> accumulator fold -> [n_blocks, 2, T] output
+    resample (unit or general kernel) -> HRTF contraction (matmul)
+    [-> wet-send mixes -> effect slots -> dry ambisonic bus -> HF scale
+     -> baked binaural decode] -> skew-sum -> accumulator fold
+    -> [n_blocks, 2, T] output
 
-This slice ports the path of the ``best_case`` scene: binaural HRTF output
-with per-voice HRIRs, no filters, no effect slots and nothing on the dry
-ambisonic bus.  Multi-block dispatches take the fused super-block branch
-(one resample + one contraction per 2..16 blocks); single blocks take the
-per-block branch.  The branches not ported yet raise NotImplementedError
-naming their ROADMAP item; on the card nothing falls back to the CPU.
+The ported path is binaural HRTF output: per-voice HRIRs ("full" mode) or
+the ``ambiN`` modes, native-rate or pitched voices, B-Format voices on the
+dry bus, and effect slots fed by unfiltered sends (the ``best_case`` and
+``loaded`` scenes of bench.py).  Multi-block dispatches take the fused
+super-block branch (one resample + one contraction per 2..16 blocks, the
+effects at the whole window where their rings allow); single blocks take
+the per-block branch.  The branches not ported yet raise
+NotImplementedError naming their ROADMAP item; on the card nothing falls
+back to the CPU.
 
 Idiom: ``lax.scan`` with donated state becomes a Python loop that updates
 the carried state (``_state``) and the evolving fields (``ev``) in place and
@@ -44,8 +49,11 @@ from ..core.voice import PlayState
 from ..ops import tables
 
 from .._device import resolve_device
+from ..ops import filters as f_ops
 from ..ops import hrtf_mix
+from ..ops import mix as mix_ops
 from ..ops import resample as rs_ops
+from ..ops.kernels import resample_gen as rs_gen
 from ..ops.kernels import resample_unit as rs_unit
 
 f32 = np.float32
@@ -60,6 +68,38 @@ def _to_dev(a, device: torch.device) -> torch.Tensor:
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
+
+
+# Integer scalars of the effect state keep the JAX package's dtypes in a
+# snapshot; on the device they are int64.
+_SNAP_INT_DTYPES = {"mod_index": np.uint32, "offset": np.int32,
+                    "serial_done": np.int32}
+
+
+def _state_to_host(state: dict) -> dict:
+    """The carried state (nested for effect slots) as numpy arrays."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out[k] = _state_to_host(v)
+        elif k in _SNAP_INT_DTYPES and not v.dtype.is_floating_point:
+            out[k] = _to_host(v).astype(_SNAP_INT_DTYPES[k])
+        else:
+            out[k] = _to_host(v)
+    return out
+
+
+def _state_to_dev(state: dict, device: torch.device) -> dict:
+    """Inverse of _state_to_host; integer leaves become int64."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out[k] = _state_to_dev(v, device)
+        else:
+            a = np.asarray(v)
+            out[k] = _to_dev(a.astype(np.int64) if a.dtype.kind in "iu"
+                             else a, device)
+    return out
 
 
 class BufferPool:
@@ -297,6 +337,20 @@ class RenderDevice:
                                    self.sample_rate))
             log.trace("HRTF enabled: %s order, rate %d, ir %d", ambi_order,
                       self.hrtf_store.sample_rate, self.hrtf_store.ir_size)
+            # The dry ambisonic bus decodes to binaural through baked HRIRs,
+            # zero-extended to the voices' 192-tap frame so both accumulate
+            # through one skew-sum; its high band is scaled per channel.
+            direct = hrtf_mod.build_direct_hrtf(
+                self.hrtf_store, self.hrtf_store.ir_size, ambi_order)
+            dc = np.asarray(direct.coeffs, f32)
+            self._direct_coeffs = _to_dev(np.concatenate(
+                [dc, np.zeros((dc.shape[0], hrtf_mix.HRIR_EXT - dc.shape[1],
+                               2), f32)], axis=1), self.torch_device)
+            self._direct_hf_scales = _to_dev(
+                np.asarray(direct.hf_scales, f32), self.torch_device)
+            self._hrtf_splitter = f_ops.BandSplitterKernels(
+                float(f_ops.band_splitter_coeff(700.0 / self.sample_rate)),
+                variant_3arg=True)
 
         # Near-field compensation control distance (InitNearFieldCtrl,
         # panning.cpp:276-300).  The voice params read avg_speaker_dist; the
@@ -350,6 +404,11 @@ class RenderDevice:
         self._has_uhj_voices = False
         self._pending_resets: set[int] = set()
         self.contexts: list = []
+        # Effect slots: aluInitEffectPanning gives each slot a full-order
+        # ambisonic wet bus (ACN, unit scale).
+        self.wet_channels = (self.layout.ambi_order + 1) ** 2
+        self.slots: list = []
+        self._bank_sl = None   # (taps, bank sliced for the general kernel)
         self._state = self._init_state()
         self._clock_samples = 0
         self._carry: np.ndarray | None = None  # rendered-ahead frames (f32)
@@ -460,16 +519,31 @@ class RenderDevice:
     def set_taps(self, taps: int) -> None:
         self._taps = max(self._taps, taps)
 
+    # --- effect slots ---
+
+    def register_slot(self, slot) -> int:
+        self.slots.append(slot)
+        idx = len(self.slots) - 1
+        self._state[f"slot{idx}"] = slot.state.device_update()
+        self._cfg_dev = None
+        return idx
+
+    def slot_effect_changed(self, slot, buffer=None) -> None:
+        self._state[f"slot{slot.index}"] = slot.state.device_update(buffer)
+        self._cfg_dev = None
+
     def _graph_gates(self) -> tuple:
         """Host-known scene facts that prune the block path: no direct
-        filters, no send filters, nothing on the dry ambisonic bus."""
+        filters, no send filters, nothing on the dry ambisonic bus (per-
+        voice HRIRs only, no slots, no NFC)."""
         g = []
         t = self.table
         if not bool(t.filter_active[t.active].any()):
             g.append("gate:nofilt")
         if not bool(t.send_filter_active[t.active].any()):
             g.append("gate:nosendfilt")
-        if (self.layout.mode == panning.RenderMode.HRTF
+        if (self.layout.mode == panning.RenderMode.HRTF and not self.slots
+                and self.avg_speaker_dist == 0.0
                 and not bool(np.any(t.dry_tgt[t.active]))):
             g.append("gate:nodry")
         return tuple(g)
@@ -487,32 +561,26 @@ class RenderDevice:
         if self.layout.mode == panning.RenderMode.HRTF:
             state["hrtf_history"] = z(L, hrtf_mix.HIST)
             state["hrtf_tail"] = z(128, 2)
+            state["direct_split"] = z(self.n_dry, 3)
         return state
 
     # --- what this slice renders ---
 
-    def _check_ported(self, gates: tuple, kind: str) -> None:
+    def _check_ported(self, gates: tuple) -> None:
         """Raise for a scene outside the ported path, naming its item."""
         if self.layout.mode != panning.RenderMode.HRTF:
             raise NotImplementedError(
                 "speaker, pairwise-stereo, UHJ/TSME and ambisonic output "
-                "(gain-ramped mix + decode): ROADMAP A3 and A11")
+                "(gain-ramped mix + decode): ROADMAP A11")
         if self.avg_speaker_dist > 0.0:
             raise NotImplementedError(
                 "near-field compensation: ROADMAP A10")
         if self._has_uhj_voices:
             raise NotImplementedError("UHJ/Super Stereo voices: ROADMAP A11")
         if "gate:nosendfilt" not in gates:
-            raise NotImplementedError("effect slots and sends: ROADMAP A8")
+            raise NotImplementedError("send filters: ROADMAP A9")
         if "gate:nofilt" not in gates:
             raise NotImplementedError("direct-path filters: ROADMAP A9")
-        if "gate:nodry" not in gates:
-            raise NotImplementedError(
-                "the HRTF dry ambisonic bus (B-Format voices, ambiN HRTF "
-                "modes): ROADMAP slice 1, ops/mix.py + BandSplitterKernels")
-        if kind == "gen" and self.torch_device.type == "cuda":
-            raise NotImplementedError(
-                "general-pitch resampling on the card: ROADMAP A7")
 
     # Largest blocks per resample call (the JAX package's super-block
     # ladder); bounded here only by the int32 position math.
@@ -520,7 +588,7 @@ class RenderDevice:
 
     def _rs_plan(self, T: int, n_blocks: int) -> tuple[str, int]:
         """(kind, sb): ``"unit"`` when every active increment is exactly
-        1<<16 (the unit kernel), else ``"gen"`` (the plain resampler); sb
+        1<<16 (the unit kernel), else ``"gen"`` (the general kernel); sb
         blocks share one resample and one HRTF contraction."""
         inc = self.table.increment[self.table.active]
         kind = ("unit" if bool(np.all(inc == 1 << MIXER_FRAC_BITS))
@@ -543,11 +611,89 @@ class RenderDevice:
         if self._bank_dev is None:
             self._bank_dev = {k: _to_dev(v, self.torch_device)
                               for k, v in self._bank.items()}
-        return rs_ops.resample_voices(
+        if self._bank_sl is None or self._bank_sl[0] != self._taps:
+            self._bank_sl = (self._taps,
+                             rs_gen.slice_bank(self._bank_dev, self._taps))
+        return rs_gen.resample_gen(
             pool, cfg["src_off"], cfg["src_len"], cfg["loop_start"],
             cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
             ev["pos_int"], ev["pos_frac"], cfg["increment"],
-            cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps)
+            cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps,
+            bank_sl=self._bank_sl[1])
+
+    @staticmethod
+    def _dry_bus(ev: dict, cfg: dict, x, fade_len: int, no_dry: bool):
+        """The dry ambisonic bus [n_dry, n], or None under gate:nodry, where
+        the current dry gains land on their (zero) targets as the 64-sample
+        ramp would by block end."""
+        dry_tgt = torch.where(cfg["playing"][:, None], cfg["dry_tgt"], 0.0)
+        if no_dry:
+            ev["dry_cur"].copy_(dry_tgt)
+            return None
+        dry, cur2 = mix_ops.mix_voices(x, ev["dry_cur"], dry_tgt, ev["fade"],
+                                       fade_len)
+        ev["dry_cur"].copy_(cur2)
+        return dry
+
+    def _wet_buses(self, state: dict, ev: dict, cfg: dict, x,
+                   fade_len: int):
+        """The slots' wet buses [n_slots, B, n]: each send mixes its voices
+        onto the bus of its slot (one grouped contraction per send).  Sends
+        are unfiltered here (gate:nosendfilt), so the send-filter memories
+        stay cleared and their interpolation schedules converged."""
+        n_slots, B = len(self.slots), self.wet_channels
+        wet = torch.zeros((n_slots, B, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        for snd in range(self.num_aux_sends):
+            group = torch.where(cfg["wet_active"][:, snd],
+                                cfg["wet_slot"][:, snd], n_slots)
+            wet_tgt = torch.where(cfg["playing"][:, None],
+                                  cfg["wet_tgt"][:, snd, :B], 0.0)
+            bus, cur2 = mix_ops.mix_voices_grouped(
+                x, ev["wet_cur"][:, snd, :B], wet_tgt, ev["fade"], group,
+                n_slots + 1, fade_len)
+            wet = wet + bus[:n_slots]
+            ev["wet_cur"][:, snd, :B] = cur2
+        state["send_filter_z"].zero_()
+        ev["send_filter_coeffs"].copy_(cfg["send_filter_target"])
+        ev["send_filter_counter"].zero_()
+        return wet
+
+    def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
+        """Every slot's effect over a window of W samples, in the widest
+        sub-windows that all effects' rings allow (the whole super-block
+        for the reverb).  Returns (dry-bus contribution [n_dry, W], extra
+        real-output contribution [2, W] or None); slot state in place."""
+        Tw = W
+        for slot in self.slots:
+            mw = slot.state.max_window()
+            while Tw > mw or W % Tw:
+                Tw //= 2
+        Tw = max(Tw, T)
+        contribs, extras = [], []
+        for b in range(W // Tw):
+            contrib, extra = None, None
+            for i, slot in enumerate(self.slots):
+                cb, rb, state[f"slot{i}"] = slot.state.process(
+                    state[f"slot{i}"], cfg[f"slot{i}"],
+                    wet[i, :, b * Tw:(b + 1) * Tw], Tw)
+                contrib = cb if contrib is None else contrib + cb
+                if rb is not None:
+                    extra = rb if extra is None else extra + rb
+            contribs.append(contrib)
+            extras.append(extra)
+        extra = (None if all(e is None for e in extras) else torch.cat(
+            [torch.zeros((2, Tw), dtype=torch.float32, device=wet.device)
+             if e is None else e for e in extras], dim=1))
+        return torch.cat(contribs, dim=1), extra
+
+    def _direct_accum(self, state: dict, dry, W: int):
+        """The dry bus through the HF scale and the baked binaural decode,
+        in the voices' accumulation frame."""
+        scaled, sp2 = self._hrtf_splitter.hf_scale(
+            dry, state["direct_split"], self._direct_hf_scales)
+        state["direct_split"].copy_(sp2)
+        return hrtf_mix.direct_hrtf_accum(scaled, self._direct_coeffs, W)
 
     @staticmethod
     def _advance(cfg: dict, ev: dict, n: int) -> None:
@@ -570,65 +716,83 @@ class RenderDevice:
         ev["fade"].zero_()
 
     def _render_one(self, state: dict, ev: dict, cfg: dict, pool, T: int,
-                    kind: str, any_fade: bool) -> torch.Tensor:
-        """One block, per-block HRTF branch (gate:nofilt, gate:nodry):
-        returns out [2, T]; state and ev advance in place."""
+                    kind: str, any_fade: bool, gates: tuple) -> torch.Tensor:
+        """One block, per-block HRTF branch: returns out [2, T]; state and
+        ev advance in place."""
+        fade_len = min(GAIN_FADE_SAMPLES, T)
         x = self._resample(pool, cfg, ev, T, kind)
         x = torch.where(cfg["active"][:, None], x, 0.0)
+        dry = self._dry_bus(ev, cfg, x, fade_len, "gate:nodry" in gates)
+        extra = None
+        if self.slots:
+            wet = self._wet_buses(state, ev, cfg, x, fade_len)
+            contrib, extra = self._run_slots(state, cfg, wet, T, T)
+            dry = dry + contrib
         x_cat = torch.cat([state["hrtf_history"], x], dim=1)
         g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
         y_ext = hrtf_mix.hrtf_voices_accum(
             x_cat, cfg["hrtf_coeffs"], cfg["hrtf_delay"], g_eff,
             cfg["hrtf_old_coeffs"], cfg["hrtf_old_delay"],
-            cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T,
-            min(GAIN_FADE_SAMPLES, T), any_fade)
+            cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T, fade_len,
+            any_fade)
+        if dry is not None:
+            y_ext = y_ext + self._direct_accum(state, dry, T)
         out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
+        if extra is not None:
+            out = out + extra
         state["hrtf_history"].copy_(x_cat[:, T:])
         state["hrtf_tail"].copy_(new_tail)
         state["filter_z"].zero_()
-        # Current dry gains land on their (zero) targets, as the 64-sample
-        # ramp would by block end.
-        ev["dry_cur"].copy_(torch.where(cfg["playing"][:, None],
-                                        cfg["dry_tgt"], 0.0))
         self._advance(cfg, ev, T)
         return out
 
     def _render_super_block(self, state: dict, ev: dict, cfg: dict, pool,
-                            T: int, sb: int, kind: str,
-                            any_fade: bool) -> torch.Tensor:
+                            T: int, sb: int, kind: str, any_fade: bool,
+                            gates: tuple) -> torch.Tensor:
         """sb blocks as ONE resample + ONE [2*192, V] x [V, sb*T] contraction
-        + skew-sum + fold (the fused super-block HRTF branch): out [2, sb*T].
+        + skew-sum + fold (the fused super-block HRTF branch), with the wet
+        buses, the effects and the dry bus at the same width: out [2, sb*T].
 
         Every fade ramp spans the window's first fade_len samples and holds
         after, exactly the per-block evolution, since fades are nonzero only
         in the first block after a config upload.  x is not masked by
-        ``active``: the contraction folds the mask into the gains, and an
+        ``active``: the contractions fold the mask into the gains, and an
         inactive row's history is cleared when the row is reset."""
         W = sb * T
+        fade_len = min(GAIN_FADE_SAMPLES, T)
         x_all = self._resample(pool, cfg, ev, W, kind)
         g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
         y_ext = hrtf_mix.hrtf_voices_accum_split(
             state["hrtf_history"], x_all, cfg["hrtf_coeffs"],
             cfg["hrtf_delay"], g_eff, cfg["hrtf_old_coeffs"],
             cfg["hrtf_old_delay"], cfg["hrtf_old_gain"], ev["fade"],
-            cfg["active"], W, min(GAIN_FADE_SAMPLES, T), any_fade)
+            cfg["active"], W, fade_len, any_fade)
+        contrib = extra = None
+        if self.slots:
+            wet = self._wet_buses(state, ev, cfg, x_all, fade_len)
+            contrib, extra = self._run_slots(state, cfg, wet, W, T)
+        dry = self._dry_bus(ev, cfg, x_all, fade_len, "gate:nodry" in gates)
+        if dry is not None:
+            if contrib is not None:
+                dry = dry + contrib
+            y_ext = y_ext + self._direct_accum(state, dry, W)
         out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], W)
+        if extra is not None:
+            out = out + extra
         state["hrtf_history"].copy_(x_all[:, W - hrtf_mix.HIST:])
         state["hrtf_tail"].copy_(new_tail)
         state["filter_z"].zero_()
-        ev["dry_cur"].copy_(torch.where(cfg["playing"][:, None],
-                                        cfg["dry_tgt"], 0.0))
         self._advance(cfg, ev, W)
         return out
 
     def _render_chunk(self, state: dict, ev: dict, cfg: dict, pool, T: int,
                       n_blocks: int, plan: tuple[str, int], resets,
-                      any_fade: bool) -> torch.Tensor:
+                      any_fade: bool, gates: tuple) -> torch.Tensor:
         """n_blocks consecutive blocks: out [n_blocks, 2, T] on the device.
 
         ``resets`` ([L] bool, or None) clears re-allocated rows' carried
         memories first; ``any_fade`` is the host's knowledge that some row
-        fades in the first block."""
+        fades in the first block; ``gates`` the scene's _graph_gates."""
         if resets is not None:
             state["filter_z"].masked_fill_(resets[:, None, None], 0.0)
             state["hrtf_history"].masked_fill_(resets[:, None], 0.0)
@@ -640,12 +804,12 @@ class RenderDevice:
         if sb > 1:
             for i in range(n_blocks // sb):
                 o = self._render_super_block(state, ev, cfg, pool, T, sb,
-                                             kind, any_fade and i == 0)
+                                             kind, any_fade and i == 0, gates)
                 out[i * sb:(i + 1) * sb] = o.reshape(2, sb, T).transpose(0, 1)
         else:
             for b in range(n_blocks):
                 out[b] = self._render_one(state, ev, cfg, pool, T, kind,
-                                          any_fade and b == 0)
+                                          any_fade and b == 0, gates)
         return out
 
     # --- the render loop ---
@@ -678,8 +842,10 @@ class RenderDevice:
             ctx.process_updates()
 
         # Dispatch horizon: the largest chunk that fits both the request
-        # and the next host-visible event.
-        T = min(-(-remaining // self._GRAIN) * self._GRAIN, BUFFER_LINE_SIZE)
+        # and the next host-visible event.  T rounds up to the granularity
+        # (128, or an effect's inner chunk size); overshoot goes to carry.
+        grain = max([self._GRAIN] + [s.state.granularity for s in self.slots])
+        T = min(-(-remaining // grain) * grain, BUFFER_LINE_SIZE)
         n_blocks = 1
         if T == BUFFER_LINE_SIZE:
             horizon = min(remaining // T,
@@ -705,6 +871,11 @@ class RenderDevice:
             mask = self._pending_resets_mask()
             self._cfg_has_resets = bool(mask.any())   # host-known
             cfg["reset_rows"] = _to_dev(mask, self.torch_device)
+            for i, slot in enumerate(self.slots):
+                params = slot.compute_update()
+                keys = slot.state.device_params or tuple(params)
+                cfg[f"slot{i}"] = {k: _to_dev(params[k], self.torch_device)
+                                   for k in keys if k in params}
             self._cfg_dev = cfg
             # Evolving fields changed with the config; in steady state the
             # device's own evolved copy equals the host mirror.
@@ -715,14 +886,14 @@ class RenderDevice:
         else:
             ev, any_fade = self._ev_dev, self._ev_fade
 
-        plan = self._rs_plan(T, n_blocks)
-        self._check_ported(self._graph_gates(), plan[0])
+        gates = self._graph_gates()
+        self._check_ported(gates)
         resets = (self._cfg_dev["reset_rows"] if self._cfg_has_resets
                   else None)
         blocks = self._render_chunk(
             self._state, ev, self._cfg_dev,
-            self.pool.device_array(self.torch_device), T, n_blocks, plan,
-            resets, any_fade)
+            self.pool.device_array(self.torch_device), T, n_blocks,
+            self._rs_plan(T, n_blocks), resets, any_fade, gates)
         self._cfg_has_resets = False   # the reset mask is consumed
         self._ev_dev, self._ev_fade = ev, False
         # Host bookkeeping overlaps the queued device work: the mirror
@@ -762,7 +933,7 @@ class RenderDevice:
             ev = (self._ev_dev if self._ev_dev is not None
                   else self.table.evolving_dict(self.torch_device))
             return {
-                "state": {k: _to_host(v) for k, v in self._state.items()},
+                "state": _state_to_host(self._state),
                 "ev": {k: _to_host(v) for k, v in ev.items()},
                 "table": {k: np.asarray(getattr(self.table, k)).copy()
                           for k in ParamTable._FIELDS},
@@ -772,16 +943,13 @@ class RenderDevice:
 
     def restore(self, snap: dict) -> None:
         """Continue a snapshot — this port's or the JAX package's
-        RenderDevice.snapshot() — in this identically configured device."""
+        RenderDevice.snapshot(), effect-slot state included — in this
+        identically configured device."""
         with self.lock:
-            if any(isinstance(v, dict) for v in snap["state"].values()):
-                raise NotImplementedError(
-                    "snapshot holds effect-slot state: ROADMAP A8")
             for k, v in snap["table"].items():
                 getattr(self.table, k)[...] = v
             dev = self.torch_device
-            self._state = {k: _to_dev(v, dev)
-                           for k, v in snap["state"].items()}
+            self._state = _state_to_dev(snap["state"], dev)
             self._ev_dev = {k: _to_dev(v, dev) for k, v in snap["ev"].items()}
             self._ev_fade = bool(np.any(snap["ev"]["fade"]))
             self._carry = (None if snap["carry"] is None

@@ -28,6 +28,7 @@ from ..constants import (
 )
 
 HIST = HRTF_HISTORY_LENGTH  # 64
+HRIR_EXT = HRIR_LENGTH + HIST  # 192: HRIR shifted by its integer delay
 
 
 def skew_sum(P: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import chip_smoke
+from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
+from openal_soft_tpu_torch.ops.kernels import reverb as t_rev
 
 pytestmark = pytest.mark.cuda
 
@@ -53,3 +55,42 @@ def test_port_on_the_card_matches_the_cpu(cuda):
         assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
             <= chip_smoke.PARITY_TOL
     assert t_unit.resample_unit.launches > before
+
+
+@pytest.mark.parametrize("taps", [1, 2, 4, 24, 48])
+@pytest.mark.parametrize("W", [128, 16384])
+def test_general_kernel_equals_plain_version(cuda, taps, W):
+    args = chip_smoke.gen_case(np.random.default_rng(taps + W), 256, W, taps,
+                               10 << 16, cuda)
+    before = t_gen.resample_gen.launches
+    got = t_gen.resample_gen(*args, W, taps)
+    torch.cuda.synchronize()
+    assert t_gen.resample_gen.launches == before + 1
+    assert torch.equal(got, t_gen.resample_gen_ref(*args, W, taps))
+
+
+@pytest.mark.parametrize("rate", [48000, 96000])
+@pytest.mark.parametrize("crossfade", [False, True])
+def test_reverb_kernel_within_bound_of_plain_version(cuda, rate, crossfade):
+    eff, prm, st = chip_smoke.reverb_case(rate, crossfade, "cuda")
+    st_plain = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                    {n: t.clone() for n, t in v.items()})
+                for k, v in st.items()}
+    windows = chip_smoke.reverb_windows(np.random.default_rng(rate), 1024,
+                                        eff.chunk, cuda)
+    got = chip_smoke.run_reverb_windows(eff, prm, st, windows, True)
+    want = chip_smoke.run_reverb_windows(eff, prm, st_plain, windows, False)
+    torch.cuda.synchronize()
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) \
+        <= chip_smoke.REVERB_TOL
+
+
+def test_loaded_scene_on_the_card_matches_the_cpu(cuda):
+    g = chip_smoke.loaded_scene(64, 64, "cuda")
+    c = chip_smoke.loaded_scene(64, 64, "cpu")
+    before = (t_gen.resample_gen.launches, t_rev.reverb_pipeline.launches)
+    for n in (8192, 4096, 100):
+        assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
+            <= chip_smoke.LOADED_TOL
+    assert t_gen.resample_gen.launches > before[0]
+    assert t_rev.reverb_pipeline.launches > before[1]

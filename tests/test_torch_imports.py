@@ -22,13 +22,15 @@ def _port_modules() -> list[str]:
     return mods
 
 
-# A small scene: pitched HRTF voices, rendered on the CPU through the fused
-# and per-block paths.
+# A small scene with the loaded shape: pitched HRTF voices sending to one
+# EAXReverb slot, rendered on the CPU through the fused and per-block paths.
 _SCENE = r"""
 import numpy as np
 from openal_soft_tpu_torch.alc.device import LoopbackDevice
 dev = LoopbackDevice(capacity=4, hrtf=True, device="cpu")
 ctx = dev.create_context()
+slot = ctx.create_aux_slot()
+slot.set_effect(ctx.create_effect("eaxreverb"))
 buf = ctx.create_buffer()
 buf.set_data((0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
              "mono", "float32", 48000)
@@ -38,6 +40,7 @@ for pitch in (0.7, 1.6):
     src.looping = True
     src.set("position", (1.0, 0.0, -1.0))
     src.set("pitch", pitch)
+    src.send(slot, 0)
     src.play()
 out = np.concatenate([dev.render_samples(4096), dev.render_samples(1024)])
 assert out.shape == (5120, 2) and np.isfinite(out).all() and out.any()
@@ -61,6 +64,7 @@ print("ok")
 def test_every_port_module_imports_and_renders_with_jax_blocked():
     mods = _port_modules()
     assert "openal_soft_tpu_torch.core.device" in mods
+    assert "openal_soft_tpu_torch.effects.reverb" in mods
     res = subprocess.run([sys.executable, "-c", _BLOCKED, *mods],
                          capture_output=True, text=True, cwd=ROOT,
                          timeout=300)

@@ -166,3 +166,33 @@ def test_resolve_source_index_matches_jax():
                                          (s, ls, le, hl, hw, ln)])
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("resampler", TIERS, ids=lambda r: r.name)
+def test_general_kernel_wrapper_on_the_cpu_matches_jax(resampler):
+    """The K3 wrapper takes CPU tensors to its plain version (no launch):
+    every tier at mixed pitch up to 10x, against the JAX package."""
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
+
+    taps = tables.resampler_max_taps(resampler)
+    args = _voices(2, resampler, unit=False)
+    want = _jax_resample(args, taps)
+    before = t_gen.resample_gen.launches
+    got = t_gen.resample_gen(*_torch_args(args), _torch_bank(), N,
+                             taps).numpy()
+    assert t_gen.resample_gen.launches == before
+    assert np.abs(got - want).max() <= FMA_BOUND
+
+
+@pytest.mark.parametrize("taps", [1, 2, 4, 24, 48])
+def test_sliced_bank_holds_the_plain_weights(taps):
+    """The kernel's bank slice [4, 52, 32, taps] is fil, phd, scd, spd at
+    the columns the plain version reads."""
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
+
+    bank = _torch_bank()
+    sl = t_gen.slice_bank(bank, taps)
+    lo = 24 - taps // 2
+    assert sl.shape == (4, 52, 32, taps) and sl.is_contiguous()
+    for i, k in enumerate(("fil", "phd", "scd", "spd")):
+        assert torch.equal(sl[i], bank[k][:, :, lo:lo + taps])

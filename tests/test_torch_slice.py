@@ -135,19 +135,43 @@ def test_cuda_device_without_a_card_raises():
         _TorchLoopback(hrtf=True, capacity=4, device="cuda")
 
 
-def test_unported_branches_raise():
+def _one_voice(hrtf: bool):
     dev = TorchLoopback(frequency=RATE, channels="stereo",
-                        sample_type="float32", capacity=4)   # no HRTF
+                        sample_type="float32", capacity=4, hrtf=hrtf)
     ctx = dev.create_context()
     buf = ctx.create_buffer()
     buf.set_data(_tone(4800, 440.0), "mono", "float32", RATE)
     src = ctx.create_source()
     src.buffer(buf)
+    return dev, ctx, src
+
+
+def test_unported_branches_raise():
+    """What the port does not render yet raises, naming its item: a
+    direct filter, a send filter, a chorus slot, speaker output."""
+    dev, ctx, src = _one_voice(hrtf=True)
+    flt = ctx.create_filter("lowpass")
+    flt.set("gain_hf", 0.3)
+    src.direct_filter(flt)
     src.play()
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="A9"):
         dev.render_samples(1024)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ctx.create_aux_slot()
+
+    dev, ctx, src = _one_voice(hrtf=True)
+    slot = ctx.create_aux_slot()
+    slot.set_effect(ctx.create_effect("eaxreverb"))
+    src.send(slot, 0, flt)
+    src.play()
+    with pytest.raises(NotImplementedError, match="A9"):
+        dev.render_samples(1024)
+
+    with pytest.raises(NotImplementedError, match="A12"):
+        slot.set_effect(ctx.create_effect("chorus"))
+
+    dev, ctx, src = _one_voice(hrtf=False)
+    src.play()
+    with pytest.raises(NotImplementedError, match="A11"):
+        dev.render_samples(1024)
 
 
 def test_unit_plan_runs_through_the_wrapper():
