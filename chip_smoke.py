@@ -119,14 +119,6 @@ def bench_scene(n_voices: int, capacity: int, device: str,
     return dev
 
 
-def best_case_scene(n_voices: int, capacity: int, device: str):
-    return bench_scene(n_voices, capacity, device)
-
-
-def loaded_scene(n_voices: int, capacity: int, device: str):
-    return bench_scene(n_voices, capacity, device, loaded=True)
-
-
 def unit_case(rng, V: int, W: int, taps: int, device):
     """Inputs for the unit kernel covering every resolve branch: loop seam
     inside the window, short loops (several seams), backward wrap of the
@@ -518,7 +510,7 @@ def main() -> int:
 
     # 5. best_case at full width through the port's entry points
     t0 = time.perf_counter()
-    dev = best_case_scene(N_VOICES, N_VOICES, "cuda")
+    dev = bench_scene(N_VOICES, N_VOICES, "cuda")
     setup_s = time.perf_counter() - t0
     frames = CHUNK_BLOCKS * BLOCK
     t0 = time.perf_counter()
@@ -546,8 +538,8 @@ def main() -> int:
     del dev, out
 
     # 6. best_case on the card against the port on the CPU
-    g = best_case_scene(64, 64, "cuda")
-    c = best_case_scene(64, 64, "cpu")
+    g = bench_scene(64, 64, "cuda")
+    c = bench_scene(64, 64, "cpu")
     for n, path in ((8192, "fused"), (4096, "per-block"), (100, "odd"),
                     (924, "odd"), (1, "odd")):
         a, b = g.render_samples(n), c.render_samples(n)
@@ -613,7 +605,7 @@ def main() -> int:
 
     # 10. loaded at full width through the port's entry points
     t0 = time.perf_counter()
-    dev = loaded_scene(N_VOICES, N_VOICES, "cuda")
+    dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     dev.render_samples(frames)                       # warm
@@ -643,8 +635,8 @@ def main() -> int:
     del dev, out
 
     # 11. loaded on the card against the port on the CPU
-    g = loaded_scene(64, 64, "cuda")
-    c = loaded_scene(64, 64, "cpu")
+    g = bench_scene(64, 64, "cuda", loaded=True)
+    c = bench_scene(64, 64, "cpu", loaded=True)
     for n, path in ((8192, "fused"), (4096, "per-block"), (100, "odd"),
                     (924, "odd")):
         a, b = g.render_samples(n), c.render_samples(n)

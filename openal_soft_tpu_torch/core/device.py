@@ -662,30 +662,27 @@ class RenderDevice:
     def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
         """Every slot's effect over a window of W samples, in the widest
         sub-windows that all effects' rings allow (the whole super-block
-        for the reverb).  Returns (dry-bus contribution [n_dry, W], extra
-        real-output contribution [2, W] or None); slot state in place."""
+        for the reverb).  Returns the dry-bus contribution [n_dry, W]; slot
+        state in place.  The ported effects write only to the dry bus."""
         Tw = W
         for slot in self.slots:
             mw = slot.state.max_window()
             while Tw > mw or W % Tw:
                 Tw //= 2
         Tw = max(Tw, T)
-        contribs, extras = [], []
+        contribs = []
         for b in range(W // Tw):
-            contrib, extra = None, None
+            contrib = None
             for i, slot in enumerate(self.slots):
                 cb, rb, state[f"slot{i}"] = slot.state.process(
                     state[f"slot{i}"], cfg[f"slot{i}"],
                     wet[i, :, b * Tw:(b + 1) * Tw], Tw)
-                contrib = cb if contrib is None else contrib + cb
                 if rb is not None:
-                    extra = rb if extra is None else extra + rb
+                    raise NotImplementedError(
+                        "effects that write the real output: ROADMAP A12")
+                contrib = cb if contrib is None else contrib + cb
             contribs.append(contrib)
-            extras.append(extra)
-        extra = (None if all(e is None for e in extras) else torch.cat(
-            [torch.zeros((2, Tw), dtype=torch.float32, device=wet.device)
-             if e is None else e for e in extras], dim=1))
-        return torch.cat(contribs, dim=1), extra
+        return torch.cat(contribs, dim=1)
 
     def _direct_accum(self, state: dict, dry, W: int):
         """The dry bus through the HF scale and the baked binaural decode,
@@ -723,11 +720,9 @@ class RenderDevice:
         x = self._resample(pool, cfg, ev, T, kind)
         x = torch.where(cfg["active"][:, None], x, 0.0)
         dry = self._dry_bus(ev, cfg, x, fade_len, "gate:nodry" in gates)
-        extra = None
         if self.slots:
             wet = self._wet_buses(state, ev, cfg, x, fade_len)
-            contrib, extra = self._run_slots(state, cfg, wet, T, T)
-            dry = dry + contrib
+            dry = dry + self._run_slots(state, cfg, wet, T, T)
         x_cat = torch.cat([state["hrtf_history"], x], dim=1)
         g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
         y_ext = hrtf_mix.hrtf_voices_accum(
@@ -738,8 +733,6 @@ class RenderDevice:
         if dry is not None:
             y_ext = y_ext + self._direct_accum(state, dry, T)
         out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
-        if extra is not None:
-            out = out + extra
         state["hrtf_history"].copy_(x_cat[:, T:])
         state["hrtf_tail"].copy_(new_tail)
         state["filter_z"].zero_()
@@ -767,18 +760,16 @@ class RenderDevice:
             cfg["hrtf_delay"], g_eff, cfg["hrtf_old_coeffs"],
             cfg["hrtf_old_delay"], cfg["hrtf_old_gain"], ev["fade"],
             cfg["active"], W, fade_len, any_fade)
-        contrib = extra = None
+        contrib = None
         if self.slots:
             wet = self._wet_buses(state, ev, cfg, x_all, fade_len)
-            contrib, extra = self._run_slots(state, cfg, wet, W, T)
+            contrib = self._run_slots(state, cfg, wet, W, T)
         dry = self._dry_bus(ev, cfg, x_all, fade_len, "gate:nodry" in gates)
         if dry is not None:
             if contrib is not None:
                 dry = dry + contrib
             y_ext = y_ext + self._direct_accum(state, dry, W)
         out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], W)
-        if extra is not None:
-            out = out + extra
         state["hrtf_history"].copy_(x_all[:, W - hrtf_mix.HIST:])
         state["hrtf_tail"].copy_(new_tail)
         state["filter_z"].zero_()

@@ -512,7 +512,6 @@ class ReverbEffect(EffectState):
         return (pan(coeffs_for(EARLY_A2B, earlymat), early_gain),
                 pan(coeffs_for(LATE_A2B, latemat), late_gain))
 
-
     # -- device half ----------------------------------------------------------
 
     def _tables(self, device: torch.device) -> dict:

@@ -1,11 +1,12 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and bind the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
 first use with nvcc into ``openal_soft_tpu_torch/_build/lib<name>-<hash>.so``
 (the hash covers the source and the flags, so an edited source rebuilds),
 then loaded with ctypes.  Nothing is built when a module is imported, and
 only the repository's own sources are compiled.  A failed build raises with
-nvcc's output.
+nvcc's output.  ``check_tensor`` holds a tensor to the layout a kernel's
+C interface assumes before its pointer is passed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -77,3 +80,17 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless x is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -20,6 +20,7 @@ import torch
 
 from ...constants import RESAMPLE_TAPS
 from .. import resample as rs_ops
+from ._build import check_tensor, load_library
 
 resample_gen_ref = rs_ops.resample_voices
 _BANK_KEYS = ("fil", "phd", "scd", "spd")
@@ -44,26 +45,12 @@ def pack_meta(src_off, src_len, loop_start, loop_end, has_loop, has_wrapped,
 
 def _launcher():
     """The C entry point, built on first use, with its ctypes signature."""
-    from ._build import load_library
-
     fn = load_library("resample_gen").resample_gen_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def resample_gen(pool, src_off, src_len, loop_start, loop_end, has_loop,
@@ -91,12 +78,12 @@ def resample_gen(pool, src_off, src_len, loop_start, loop_end, has_loop,
     V = src_off.shape[0]
     if bank_sl is None:
         bank_sl = slice_bank(bank, taps)
-    _check("pool", pool, torch.float32, (pool.numel(),), dev)
-    _check("bank_sl", bank_sl, torch.float32, (4, 52, 32, taps), dev)
-    _check("sf", sf, torch.float32, (V,), dev)
+    check_tensor("pool", pool, torch.float32, (pool.numel(),), dev)
+    check_tensor("bank_sl", bank_sl, torch.float32, (4, 52, 32, taps), dev)
+    check_tensor("sf", sf, torch.float32, (V,), dev)
     meta = pack_meta(src_off, src_len, loop_start, loop_end, has_loop,
                      has_wrapped, pos_int, pos_frac, increment, bank_row)
-    _check("meta", meta, torch.int32, (V, 12), dev)
+    check_tensor("meta", meta, torch.int32, (V, 12), dev)
     out = torch.empty((V, n), dtype=torch.float32, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):

@@ -28,6 +28,7 @@ import torch
 from ...constants import MIXER_FRAC_BITS, RESAMPLE_TAPS
 
 from .. import resample as rs_ops
+from ._build import check_tensor, load_library
 
 _PHASE_SHIFT = MIXER_FRAC_BITS - 5
 _PHASE_SUB_MASK = (1 << _PHASE_SHIFT) - 1
@@ -87,26 +88,12 @@ def pack_meta(src_off, src_len, loop_start, loop_end, has_loop, has_wrapped,
 
 def _launcher():
     """The C entry point, built on first use, with its ctypes signature."""
-    from ._build import load_library
-
     fn = load_library("resample_unit").resample_unit_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def resample_unit(pool, src_off, src_len, loop_start, loop_end, has_loop,
@@ -130,11 +117,11 @@ def resample_unit(pool, src_off, src_len, loop_start, loop_end, has_loop,
     if n <= 0 or pool.dim() != 1 or pool.numel() == 0:
         raise ValueError("resample_unit: need n > 0 and a non-empty 1-D pool")
     dev = pool.device
-    _check("pool", pool, torch.float32, (pool.numel(),), dev)
-    _check("weights", weights, torch.float32, (V, taps), dev)
+    check_tensor("pool", pool, torch.float32, (pool.numel(),), dev)
+    check_tensor("weights", weights, torch.float32, (V, taps), dev)
     meta = pack_meta(src_off, src_len, loop_start, loop_end, has_loop,
                      has_wrapped, pos_int)
-    _check("meta", meta, torch.int32, (V, 8), dev)
+    check_tensor("meta", meta, torch.int32, (V, 8), dev)
     out = torch.empty((V, n), dtype=torch.float32, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import filters as f_ops
+from ._build import check_tensor, load_library
 
 NL = 4
 RINGS = ("late_in", "early_ap", "early_dl", "vecap", "late_dl")
@@ -245,8 +246,6 @@ def reverb_pipeline_ref(ain, main, st, pi, pf, offset, ctab, *,
 
 def _launcher():
     """The C entry point, built on first use, with its ctypes signature."""
-    from ._build import load_library
-
     fn = load_library("reverb").reverb_pipeline_launch
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P, I, I, P, P, I]          # ain, W, write_main, offset, main, Lm
@@ -258,21 +257,9 @@ def _launcher():
     return fn
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _ring(name: str, x: torch.Tensor, device) -> None:
     L = x.shape[-1]
-    _check(name, x, torch.float32, (NL, L), device)
+    check_tensor(name, x, torch.float32, (NL, L), device)
     if L <= 0 or L & (L - 1):
         raise ValueError(f"{name}: ring length {L} is not a power of two")
 
@@ -300,20 +287,20 @@ def reverb_pipeline(ain, main, st, pi, pf, offset, ctab, *, write_main: bool,
     if e_passes < 0 or l_passes < 0 or mod_win < 0:
         raise ValueError("reverb_pipeline: negative pass count or window")
     dev = ain.device
-    _check("ain", ain, torch.float32, (NL, W), dev)
+    check_tensor("ain", ain, torch.float32, (NL, W), dev)
     _ring("main", main, dev)
     if W > main.shape[1]:
         raise ValueError(f"reverb_pipeline: W={W} exceeds the main line")
     for k in RINGS:
         _ring(k, st[k], dev)
     for k in ZSTATES:
-        _check(k, st[k], torch.float32, (NL, 2), dev)
+        check_tensor(k, st[k], torch.float32, (NL, 2), dev)
     for k in ("mod_index", "serial_done"):
-        _check(k, st[k], torch.int64, (), dev)
-    _check("offset", offset, torch.int64, (), dev)
-    _check("pi", pi, torch.int32, (N_PI,), dev)
-    _check("pf", pf, torch.float32, (N_PF,), dev)
-    _check("ctab", ctab, torch.float32, (256, 4), dev)
+        check_tensor(k, st[k], torch.int64, (), dev)
+    check_tensor("offset", offset, torch.int64, (), dev)
+    check_tensor("pi", pi, torch.int32, (N_PI,), dev)
+    check_tensor("pf", pf, torch.float32, (N_PF,), dev)
+    check_tensor("ctab", ctab, torch.float32, (256, 4), dev)
     early = torch.empty((NL, W), dtype=torch.float32, device=dev)
     late = torch.empty_like(early)
     args = [ain.data_ptr(), W, int(bool(write_main)), offset.data_ptr(),

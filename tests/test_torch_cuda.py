@@ -48,8 +48,8 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 
 def test_port_on_the_card_matches_the_cpu(cuda):
-    g = chip_smoke.best_case_scene(64, 64, "cuda")
-    c = chip_smoke.best_case_scene(64, 64, "cpu")
+    g = chip_smoke.bench_scene(64, 64, "cuda")
+    c = chip_smoke.bench_scene(64, 64, "cpu")
     before = t_unit.resample_unit.launches
     for n in (8192, 4096, 100):
         assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
@@ -86,8 +86,8 @@ def test_reverb_kernel_within_bound_of_plain_version(cuda, rate, crossfade):
 
 
 def test_loaded_scene_on_the_card_matches_the_cpu(cuda):
-    g = chip_smoke.loaded_scene(64, 64, "cuda")
-    c = chip_smoke.loaded_scene(64, 64, "cpu")
+    g = chip_smoke.bench_scene(64, 64, "cuda", loaded=True)
+    c = chip_smoke.bench_scene(64, 64, "cpu", loaded=True)
     before = (t_gen.resample_gen.launches, t_rev.reverb_pipeline.launches)
     for n in (8192, 4096, 100):
         assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \

@@ -19,7 +19,6 @@ the port, and the hrtf_ambi2/hrtf_ambi3 goldens (the dry ambisonic bus),
 read only (ROADMAP C3).
 """
 
-import os
 import pathlib
 
 import numpy as np
