@@ -34,13 +34,29 @@ result:
                 the output must be finite and nonzero
  11. parity     loaded at 64 voices on the card against the CPU: fused
                 (8192 frames), per-block (4096) and odd sizes, <= 1e-4
+ 12. kernel     biquad against its plain version: V 100 and 256, T 128,
+                1024 and 16384, counters 0, 256 and mixed, lowpass,
+                highpass, bandpass and unfiltered rows, state carried over
+                two calls: bit-equal required
+ 13. timing     biquad and its plain version at V=4096, T=1024 and 16384
+ 14. speakers_filtered  the loaded scene on a stereo speaker device
+                (pairwise panning), every voice behind a lowpass direct
+                filter of gain_hf ~ U(0.1, 0.9), send 0 through a lowpass
+                send filter of gain_hf 0.5; one warm call, then new gains
+                for every voice and two timed 512-block calls; the output
+                must be finite and nonzero
+ 15. parity     at 64 voices on the card against the CPU, <= 1e-4: the
+                stereo scene of phase 14, a surround51 scene (dual-band
+                decode, front stabilizer), an HRTF scene with direct
+                filters and an order-2 Ambi3D scene with NFC; multi-block
+                (8192 frames), per-block (4096) and odd sizes
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits non-zero at
 once when torch.cuda.is_available() is false.
 
-    python3 chip_smoke.py --profile best_case|loaded
+    python3 chip_smoke.py --profile best_case|loaded|speakers_filtered
 
 instead builds the kernels and profiles one warm 512-block call of the
 scene at full width with torch.profiler (device time by kernel and by op).
@@ -49,10 +65,13 @@ scene at full width with torch.profiler (device time by kernel and by op).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,9 +84,10 @@ N_TONES = 48
 PARITY_TOL = 1e-5          # best_case: no feedback path
 LOADED_TOL = 1e-4          # loaded: the reverb carries rounding forward
 REVERB_TOL = 1e-6          # reverb kernel vs its plain version
+SPEAKERS_TOL = 1e-4        # filtered scenes with a slot, as LOADED_TOL
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
-KERNELS = ("resample_unit", "resample_gen", "reverb")
+KERNELS = ("resample_unit", "resample_gen", "reverb", "biquad")
 
 
 def emit(obj: dict) -> None:
@@ -88,19 +108,26 @@ def tone_pool(n_tones: int) -> list[np.ndarray]:
 
 
 def bench_scene(n_voices: int, capacity: int, device: str,
-                loaded: bool = False):
+                loaded: bool = False, filtered: bool = False,
+                channels: str = "stereo", hrtf: bool = True, **dev_kw):
     """bench.py's scenes on the port (seed 42, positions x3.0, 48 tones):
-    best_case, or loaded (pitch 2**U(-1,1), one EAXReverb slot, send 0)."""
+    best_case, or loaded (pitch 2**U(-1,1), one EAXReverb slot, send 0).
+    ``filtered`` puts a lowpass AL_DIRECT_FILTER of gain_hf ~ U(0.1, 0.9)
+    on every voice and, with the slot, a lowpass send filter of gain_hf
+    0.5 on send 0."""
     from openal_soft_tpu_torch.alc.device import LoopbackDevice
 
-    dev = LoopbackDevice(frequency=RATE, channels="stereo",
+    dev = LoopbackDevice(frequency=RATE, channels=channels,
                          sample_type="float32", capacity=capacity,
-                         hrtf=True, device=device)
+                         hrtf=hrtf, device=device, **dev_kw)
     ctx = dev.create_context()
-    slot = None
+    slot = send_flt = None
     if loaded:
         slot = ctx.create_aux_slot()
         slot.set_effect(ctx.create_effect("eaxreverb"))
+        if filtered:
+            send_flt = ctx.create_filter("lowpass")
+            send_flt.set("gain_hf", 0.5)
     rng = np.random.default_rng(42)
     bufs = []
     for tone in tone_pool(N_TONES):
@@ -114,9 +141,108 @@ def bench_scene(n_voices: int, capacity: int, device: str,
         src.set("position", tuple(rng.standard_normal(3) * 3.0))
         if loaded:
             src.set("pitch", float(2.0 ** rng.uniform(-1, 1)))
-            src.send(slot, 0)
+            src.send(slot, 0, send_flt)
+        if filtered:
+            set_direct_lowpass(ctx, src, float(rng.uniform(0.1, 0.9)))
         src.play()
     return dev
+
+
+def set_direct_lowpass(ctx, src, gain_hf: float) -> None:
+    flt = ctx.create_filter("lowpass")
+    flt.set("gain_hf", gain_hf)
+    src.direct_filter(flt)
+
+
+def refilter(dev, rng) -> None:
+    """A new direct gain_hf ~ U(0.1, 0.9) for every voice: the next
+    block's filters interpolate toward it."""
+    for ctx in dev.contexts:
+        for src in ctx.sources.values():
+            set_direct_lowpass(ctx, src, float(rng.uniform(0.1, 0.9)))
+
+
+# A dual-band decoder for surround51 that leaves the center silent, so the
+# front stabilizer engages (the matrices of the stock itu5.1 preset, the
+# CE rows zeroed).
+NOCENTER51 = """/description     dual-band itu5.1 without center
+/version         3
+/dec/chan_mask   11b
+/dec/freq_bands  2
+/dec/speakers    5
+/dec/coeff_scale fuma
+/opt/xover_freq  400.000000
+/opt/xover_ratio 0.000000
+/speakers/{
+add_spkr LS 1.0  110.0 0.0
+add_spkr LF 1.0   30.0 0.0
+add_spkr CE 1.0    0.0 0.0
+add_spkr RF 1.0  -30.0 0.0
+add_spkr RS 1.0 -110.0 0.0
+/}
+/lfmatrix/{
+order_gain 1.0 1.0 1.0 0.0
+add_row  4.9010985e-1  3.7730501e-1 -3.7310699e-1 -1.2591453e-1  1.4513300e-2
+add_row  1.4908573e-1  3.0356168e-1  1.5329006e-1  2.4511248e-1 -1.5075313e-1
+add_row  0.0 0.0 0.0 0.0 0.0
+add_row  1.4908573e-1 -3.0356168e-1  1.5329006e-1 -2.4511248e-1 -1.5075313e-1
+add_row  4.9010985e-1 -3.7730501e-1 -3.7310699e-1  1.2591453e-1  1.4513300e-2
+/}
+/hfmatrix/{
+order_gain 1.0 1.0 1.0 0.0
+add_row  5.6731600e-1  4.2292000e-1 -3.1549500e-1 -6.3449000e-2 -2.9238000e-2
+add_row  3.6858400e-1  2.7234900e-1  3.2161600e-1  1.9264500e-1  4.8260000e-2
+add_row  0.0 0.0 0.0 0.0 0.0
+add_row  3.6858400e-1 -2.7234900e-1  3.2161600e-1 -1.9264500e-1  4.8260000e-2
+add_row  5.6731600e-1 -4.2292000e-1 -3.1549500e-1  6.3449000e-2 -2.9238000e-2
+/}
+/end
+"""
+# The parity scenes of phase 15: bench_scene arguments and alsoft.conf.
+# The second-order outputs carry no slot: the reverb's upmix to buses above
+# first order fails in the JAX package and the port alike (ROADMAP C9).
+SPEAKER_SCENES = {
+    "stereo": ({"channels": "stereo", "hrtf": False, "loaded": True}, ""),
+    "surround51": ({"channels": "surround51", "hrtf": False},
+                   "front-stablizer = true\n[decoder]\n"
+                   "surround51 = {dir}/nocenter51.ambdec\n"),
+    "hrtf": ({"channels": "stereo", "hrtf": True, "loaded": True}, ""),
+    "ambi3d": ({"channels": "ambi3d", "hrtf": False, "ambi_order": 2},
+               "[decoder]\nnfc = true\nspeaker-dist = 1.5\n"),
+}
+
+
+@contextlib.contextmanager
+def alsoft_conf(text: str):
+    """The port reads ``text`` as its alsoft.conf (``{dir}`` names a
+    temporary directory that also holds NOCENTER51) within the scope."""
+    from openal_soft_tpu_torch.alc import config as alconf
+
+    old = os.environ.get("ALSOFT_CONF")
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "nocenter51.ambdec"), "w") as fh:
+            fh.write(NOCENTER51)
+        path = os.path.join(d, "alsoft.conf")
+        with open(path, "w") as fh:
+            fh.write(text.format(dir=d))
+        os.environ["ALSOFT_CONF"] = path
+        alconf.load_config(reload=True)
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["ALSOFT_CONF"]
+            else:
+                os.environ["ALSOFT_CONF"] = old
+            alconf.load_config(reload=True)
+
+
+def speaker_scene(name: str, n_voices: int, device: str):
+    """A phase-15 scene: bench_scene with filters on the output ``name`` of
+    SPEAKER_SCENES."""
+    kw, conf = SPEAKER_SCENES[name]
+    with alsoft_conf(conf):
+        return bench_scene(n_voices, n_voices, device, filtered=True, **kw)
 
 
 def unit_case(rng, V: int, W: int, taps: int, device):
@@ -181,6 +307,57 @@ def gen_case(rng, V: int, W: int, taps: int, max_inc: int, device):
             Ti(rng.integers(0, 52, V)),
             torch.tensor(rng.random(V).astype(np.float32), device=device),
             bank)
+
+
+def filter_coeffs(gain_hf: float, gain_lf: float,
+                  rate: int = RATE) -> np.ndarray:
+    """[2, 5] the port's host coefficients of an EFX filter on a voice
+    path (alu.cpp:1615-1652): a high shelf at the 5 kHz HF reference
+    (lowpass, bandpass) cascaded with a low shelf at the 250 Hz LF
+    reference (highpass, bandpass; its poles sit near DC)."""
+    from openal_soft_tpu_torch.core.context import _rcpq_from_slope
+    from openal_soft_tpu_torch.ops import spec
+
+    hf = np.float32(max(gain_hf, 0.001))
+    lf = np.float32(max(gain_lf, 0.001))
+    return np.stack([
+        spec.biquad_set_params("highshelf", np.float32(5000.0 / rate), hf,
+                               _rcpq_from_slope(hf, 1.0)),
+        spec.biquad_set_params("lowshelf", np.float32(250.0 / rate), lf,
+                               _rcpq_from_slope(lf, 1.0))]).astype(np.float32)
+
+
+def biquad_case(rng, V: int, T: int, counters: str, device):
+    """Inputs of the dual biquad: rows cycle through lowpass, highpass and
+    bandpass filters at random gains (down to 0.05, the near-DC shelves)
+    and unfiltered rows (identity coefficients, as the table holds them);
+    the current coefficients are an earlier setting, the targets a new one,
+    and the counters all 0 (on target), all 256 (a fresh change) or
+    ``"mixed"`` (0, 256 and the steps between).  State z as a running
+    filter leaves it; unit-scale x."""
+    import torch
+
+    cur = np.zeros((V, 2, 5), np.float32)
+    tgt = np.zeros((V, 2, 5), np.float32)
+    for v in range(V):
+        kind = v % 4
+        for out in (cur, tgt):
+            g = rng.uniform(0.05, 0.9, 2)
+            out[v] = filter_coeffs(g[0] if kind in (0, 2) else 1.0,
+                                   g[1] if kind in (1, 2) else 1.0)
+        if kind == 3:
+            cur[v] = tgt[v] = 0.0
+            cur[v, :, 0] = tgt[v, :, 0] = 1.0
+    if counters == "mixed":
+        cnt = rng.choice(np.arange(0, 257, 32), V)
+    else:
+        cnt = np.full(V, int(counters))
+    cur[cnt == 0] = tgt[cnt == 0]
+    T_ = lambda a, dt=torch.float32: torch.tensor(np.asarray(a),  # noqa: E731
+                                                  device=device).to(dt)
+    return (T_(rng.standard_normal((V, T)) * 0.5),
+            T_(rng.standard_normal((V, 2, 2)) * 0.05), T_(cur), T_(tgt),
+            T_(cnt, torch.int32))
 
 
 def cuda_ms(fn, iters: int, warmup: int) -> float:
@@ -341,6 +518,49 @@ def check_reverb_kernel(cuda) -> float:
     return max_err
 
 
+def check_biquad_kernel(cuda) -> float:
+    """Phase 12: biquad bit-equal to its plain version, outputs and carried
+    state, over two consecutive calls."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    rng = np.random.default_rng(4)
+    cases = [(V, T, c) for V in (100, 256) for T in (128, 1024)
+             for c in ("0", "256", "mixed")]
+    cases += [(V, 16384, "mixed") for V in (100, 256)]
+    max_err = 0.0
+    for V, T, counters in cases:
+        x, z, cf, tgt, cnt = biquad_case(rng, V, T, counters, cuda)
+        x2 = torch.tensor((rng.standard_normal((V, T)) * 0.5).astype(
+            np.float32), device=cuda)
+        got = want = (None, z, cf, cnt)
+        equal, err, mid = True, 0.0, []
+        for xin in (x, x2):                  # state carried to a 2nd call
+            got = biq.biquad_dual(xin, got[1], got[2], tgt, got[3])
+            want = biq.biquad_dual_ref(xin, want[1], want[2], tgt, want[3])
+            torch.cuda.synchronize()
+            equal &= all(torch.equal(a, b) for a, b in zip(got, want))
+            err = max([err] + [float((a.double() - b.double()).abs().max())
+                               for a, b in zip(got, want)])
+            mid.append(int((got[3] > 0).sum()))
+        emit({"phase": "kernel", "name": "biquad", "V": V, "T": T,
+              "counters": counters, "calls": 2, "max_abs_err": err,
+              "bit_equal": equal, "lines_mid_interpolation": mid})
+        if not equal:
+            raise AssertionError(f"biquad != plain at V={V} T={T} "
+                                 f"counters={counters}: {err}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def biquad_bound(V: int, T: int) -> tuple[float, str]:
+    """A dual-biquad call: x read and y written once, the state, the
+    coefficients, the targets and the counters read and written once;
+    against 18 flops per sample (two TDF2 sections of 9)."""
+    return bound(4 * (2 * V * T + V * (2 * 4 + 3 * 10 + 2)), 18 * V * T)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the HBM rate against the
     operations over the fp32 peak, whichever takes longer."""
@@ -378,7 +598,12 @@ def profile(scene: str, smi: str) -> None:
     from torch.profiler import ProfilerActivity
 
     build_all()
-    dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=scene == "loaded")
+    if scene == "speakers_filtered":
+        dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True,
+                          filtered=True, hrtf=False)
+    else:
+        dev = bench_scene(N_VOICES, N_VOICES, "cuda",
+                          loaded=scene == "loaded")
     frames = CHUNK_BLOCKS * BLOCK
     dev.render_samples(frames)                       # warm
     torch.cuda.synchronize()
@@ -428,6 +653,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--profile"]:
         profile(sys.argv[2], nvidia_smi())
         return 0
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
     from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
     from openal_soft_tpu_torch.ops.kernels import reverb as rev_k
@@ -436,7 +662,8 @@ def main() -> int:
     smi = nvidia_smi()
     wrappers = {"resample_unit": rs_unit.resample_unit,
                 "resample_gen": rs_gen.resample_gen,
-                "reverb": rev_k.reverb_pipeline}
+                "reverb": rev_k.reverb_pipeline,
+                "biquad": biq.biquad_dual}
     report = {name: {"name": name, "route": "cuda",
                      "source": f"openal_soft_tpu_torch/csrc/{name}.cu",
                      "library_ms": None} for name in KERNELS}
@@ -445,6 +672,7 @@ def main() -> int:
     report["resample_gen"]["replaces"] = \
         "openal_soft_tpu/ops/pallas/resample3.py:113"
     report["reverb"]["replaces"] = "openal_soft_tpu/ops/pallas/reverb.py:219"
+    report["biquad"]["replaces"] = "openal_soft_tpu/ops/pallas/biquad.py:35"
 
     # 1. environment
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -647,6 +875,85 @@ def main() -> int:
         if not (np.isfinite(a).all() and err <= LOADED_TOL):
             raise AssertionError(f"loaded GPU vs CPU port at {n} frames: "
                                  f"{err}")
+
+    # 12-13. the dual biquad against its plain version, then timed at the
+    # main path's shape (V = 4096 voices, T = 1024 per block) and at 16384
+    report["biquad"]["max_abs_err"] = check_biquad_kernel(cuda)
+    rng = np.random.default_rng(6)
+    for T in (BLOCK, 16 * BLOCK):
+        bargs = biquad_case(rng, N_VOICES, T, "mixed", cuda)
+        if not all(torch.equal(a, b) for a, b in zip(
+                biq.biquad_dual(*bargs), biq.biquad_dual_ref(*bargs))):
+            raise AssertionError(f"biquad != plain at V={N_VOICES}, T={T}")
+        ms = cuda_ms(lambda: biq.biquad_dual(*bargs), 50, 5)
+        plain_ms = cuda_ms(lambda: biq.biquad_dual_ref(*bargs), 2, 1)
+        bound_ms, bound_by = biquad_bound(N_VOICES, T)
+        if T == BLOCK:
+            report["biquad"].update(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "timing", "name": "biquad", "V": N_VOICES, "T": T,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by,
+              "GBps": 8 * N_VOICES * T / (ms * 1e-3) / 1e9,
+              "nvidia_smi": smi})
+        del bargs
+
+    # 14. speakers_filtered at full width through the port's entry points
+    t0 = time.perf_counter()
+    dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True,
+                      filtered=True, hrtf=False)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev.render_samples(frames)                       # warm
+    warm_s = time.perf_counter() - t0
+    refilter(dev, np.random.default_rng(7))   # the next block interpolates
+    for name in KERNELS:
+        wrappers[name].launches = 0
+    t0 = time.perf_counter()
+    out = dev.render_samples(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in KERNELS}
+    report["biquad"]["launches"] = launches["biquad"]
+    t0 = time.perf_counter()
+    out2 = dev.render_samples(frames)
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t0
+    finite = bool(np.isfinite(out).all() and np.isfinite(out2).all())
+    peak = float(min(np.abs(out).max(), np.abs(out2).max()))
+    emit({"phase": "speakers_filtered", "voices": N_VOICES, "frames": frames,
+          "setup_s": setup_s, "warm_s": warm_s, "render_s": [dt, dt2],
+          "x_realtime": [(frames / RATE) / dt, (frames / RATE) / dt2],
+          "launches": launches, "finite": finite, "peak": peak,
+          "shape": list(out.shape), "nvidia_smi": smi})
+    if out.shape != (frames, 2) or not finite or not peak > 0.0:
+        raise AssertionError("speakers_filtered output is not finite, "
+                             f"nonzero [{frames}, 2]: shape {out.shape}, "
+                             f"finite {finite}, peak {peak}")
+    if not all(launches[k] > 0 for k in ("resample_gen", "reverb",
+                                         "biquad")):
+        raise AssertionError(f"speakers_filtered skipped a kernel: "
+                             f"{launches}")
+    del dev, out, out2
+
+    # 15. the filtered scenes on the card against the port on the CPU
+    for name in SPEAKER_SCENES:
+        g = speaker_scene(name, 64, "cuda")
+        c = speaker_scene(name, 64, "cpu")
+        before = biq.biquad_dual.launches
+        for n, path in ((8192, "multi-block"), (4096, "per-block"),
+                        (100, "odd"), (924, "odd")):
+            a, b = g.render_samples(n), c.render_samples(n)
+            err = float(np.abs(a - b).max())
+            emit({"phase": "parity", "scene": name, "frames": n,
+                  "path": path, "channels": int(b.shape[1]),
+                  "max_abs_err": err, "tol": SPEAKERS_TOL,
+                  "peak": float(np.abs(b).max())})
+            if not (np.isfinite(a).all() and err <= SPEAKERS_TOL):
+                raise AssertionError(f"{name} GPU vs CPU port at {n} "
+                                     f"frames: {err}")
+        if biq.biquad_dual.launches <= before:
+            raise AssertionError(f"{name} never launched biquad")
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

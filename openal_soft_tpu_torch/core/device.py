@@ -4,20 +4,26 @@ The whole voice population lives in one structure-of-arrays param table
 (host numpy), and each dispatch renders ``n_blocks`` blocks for every voice
 at once on the chosen torch device:
 
-    resample (unit or general kernel) -> HRTF contraction (matmul)
-    [-> wet-send mixes -> effect slots -> dry ambisonic bus -> HF scale
-     -> baked binaural decode] -> skew-sum -> accumulator fold
-    -> [n_blocks, 2, T] output
+    resample (unit or general kernel) -> [direct filter (biquad kernel)]
+    -> dry ambisonic bus [through the NFC filters]
+    [-> send filters (biquad kernel) -> wet-send mixes -> effect slots]
+    -> HRTF: HRIR contraction (matmul) [+ HF scale -> baked binaural
+       decode] -> skew-sum -> accumulator fold
+    -> speakers: [band split] -> decode matrices [-> front stabilizer]
+    -> [n_blocks, n_real, T] output
 
-The ported path is binaural HRTF output: per-voice HRIRs ("full" mode) or
-the ``ambiN`` modes, native-rate or pitched voices, B-Format voices on the
-dry bus, and effect slots fed by unfiltered sends (the ``best_case`` and
-``loaded`` scenes of bench.py).  Multi-block dispatches take the fused
-super-block branch (one resample + one contraction per 2..16 blocks, the
-effects at the whole window where their rings allow); single blocks take
-the per-block branch.  The branches not ported yet raise
-NotImplementedError naming their ROADMAP item; on the card nothing falls
-back to the CPU.
+The ported path is binaural HRTF output (per-voice HRIRs, "full" mode, or
+the ``ambiN`` modes), speaker output (pairwise stereo, the built-in and
+custom ambdec decoders, single- or dual-band) and Ambi3D output; native-rate
+or pitched voices, B-Format voices on the dry bus, direct and send filters,
+near-field compensation, and effect slots that write the dry bus.
+Multi-block dispatches of unfiltered HRTF scenes take the fused super-block
+branch (one resample + one contraction per 2..16 blocks, the effects at the
+whole window where their rings allow); other multi-block dispatches resample
+once per super-block and render each block on its slice; single blocks take
+the per-block branch.  UHJ/TSME output, UHJ/Super Stereo voices and effects
+that write the real output raise NotImplementedError naming their ROADMAP
+item; on the card nothing falls back to the CPU.
 
 Idiom: ``lax.scan`` with donated state becomes a Python loop that updates
 the carried state (``_state``) and the evolving fields (``ev``) in place and
@@ -44,7 +50,7 @@ from ..core import context as cparams
 from ..core import hrtf as hrtf_mod
 from ..core import logging as log
 from ..core import mastering, panning
-from ..core.devformat import DevFmtChannels, DevFmtType, FmtChannels
+from ..core.devformat import Channel, DevFmtChannels, DevFmtType, FmtChannels
 from ..core.voice import PlayState
 from ..ops import tables
 
@@ -52,7 +58,9 @@ from .._device import resolve_device
 from ..ops import filters as f_ops
 from ..ops import hrtf_mix
 from ..ops import mix as mix_ops
+from ..ops import nfc as nfc_ops
 from ..ops import resample as rs_ops
+from ..ops.kernels import biquad as biq
 from ..ops.kernels import resample_gen as rs_gen
 from ..ops.kernels import resample_unit as rs_unit
 
@@ -352,9 +360,10 @@ class RenderDevice:
                 float(f_ops.band_splitter_coeff(700.0 / self.sample_rate)),
                 variant_3arg=True)
 
-        # Near-field compensation control distance (InitNearFieldCtrl,
-        # panning.cpp:276-300).  The voice params read avg_speaker_dist; the
-        # NFC filters themselves are ROADMAP A10.
+        # Near-field compensation (InitNearFieldCtrl, panning.cpp:276-300):
+        # the control distance sets the per-device NFC constants; the voice
+        # params read avg_speaker_dist for their per-voice w0.
+        self.nfc = None
         self.avg_speaker_dist = 0.0
         self.nfc_scale = float(np.clip(alconf.config_value_float(
             "game_compat", "nfc-scale", 1.0), 0.0001, 10000.0))
@@ -376,6 +385,21 @@ class RenderDevice:
                                                  0.0) or 0.0
             if ctrl > 0.0:
                 self.avg_speaker_dist = float(np.clip(ctrl, 0.1, 10.0))
+                w1 = float(nfc_ops.SPEED_OF_SOUND
+                           / (f32(self.avg_speaker_dist)
+                              * f32(self.sample_rate)))
+                self.nfc = nfc_ops.NfcDeviceConsts(w1)
+                log.trace("Using near-field reference distance: %.2f meters",
+                          self.avg_speaker_dist)
+        if self.nfc is not None:
+            # Dry-channel spans per ambisonic order (contiguous in ACN
+            # order; dry_acn holds true ACN indices for 2D and 3D buses).
+            order_of = np.floor(np.sqrt(self.layout.dry_acn)).astype(int)
+            self._nfc_groups = []
+            for o in range(int(order_of.max()) + 1):
+                idx = np.nonzero(order_of == o)[0]
+                assert (np.diff(idx) == 1).all(), "non-contiguous order group"
+                self._nfc_groups.append((int(idx[0]), int(idx[-1]) + 1))
 
         # Distance compensation (InitDistanceComp, panning.cpp:301-360):
         # per-speaker whole-sample delay + level scale on the real outputs.
@@ -385,6 +409,45 @@ class RenderDevice:
                 and alconf.config_value_bool("decoder", "distance-comp",
                                              True)):
             self._dist_comp = self._distance_comp_params(custom_decoder)
+
+        # The speaker decode: matrices [n_real, n_dry] with -100 dB entries
+        # zeroed (MixSamples silence-skip, mixer_c.cpp:180-181), a band
+        # splitter for the dual-band decode; None for Ambi3D output, where
+        # the dry bus is the output.
+        def _thresh(m):
+            if m is None:
+                return None
+            out = np.array(m, f32)
+            out[np.abs(out) <= 1.0e-5] = 0.0
+            return _to_dev(out, self.torch_device)
+
+        self._dec_hf = _thresh(self.layout.dec_hf)
+        self._dec_lf = _thresh(self.layout.dec_lf)
+        self._splitter = (f_ops.BandSplitterKernels(
+            float(f_ops.band_splitter_coeff(self.layout.xover_f0norm)))
+            if self._dec_lf is not None else None)
+        # Front stabilizer (alu.cpp:329-405): speaker decodes with FL/FR/FC
+        # outputs where the decoder leaves FC silent; config-gated.  Splits
+        # the decoded front mid at 5 kHz and re-pans LF 1/3 and HF 1/4
+        # toward center, all-passing every other channel into phase.
+        self._stab = None
+        if (self.layout.dec_hf is not None
+                and alconf.config_value_bool("", "front-stablizer", False)):
+            ci = self.layout.channel_index
+            need = (Channel.FRONT_LEFT, Channel.FRONT_RIGHT,
+                    Channel.FRONT_CENTER)
+            if all(ch in ci for ch in need):
+                cidx = ci[Channel.FRONT_CENTER]
+                hasfc = bool(np.any(self.layout.dec_hf[cidx]))
+                if self.layout.dec_lf is not None:
+                    hasfc |= bool(np.any(self.layout.dec_lf[cidx]))
+                if not hasfc:
+                    self._stab = {
+                        "idx": (ci[Channel.FRONT_LEFT],
+                                ci[Channel.FRONT_RIGHT], cidx),
+                        "coeff": float(f_ops.band_splitter_coeff(
+                            5000.0 / self.sample_rate)),
+                    }
 
         self.pool = BufferPool()
         self.table = ParamTable(capacity, self.n_dry, num_aux_sends,
@@ -543,7 +606,7 @@ class RenderDevice:
         if not bool(t.send_filter_active[t.active].any()):
             g.append("gate:nosendfilt")
         if (self.layout.mode == panning.RenderMode.HRTF and not self.slots
-                and self.avg_speaker_dist == 0.0
+                and self.nfc is None
                 and not bool(np.any(t.dry_tgt[t.active]))):
             g.append("gate:nodry")
         return tuple(g)
@@ -551,13 +614,20 @@ class RenderDevice:
     # --- carried device state ---
 
     def _init_state(self) -> dict:
+        """The carried state, under the JAX package's names and shapes so
+        that snapshots cross between the two."""
         L = self.capacity
         z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
                                        device=self.torch_device)
-        # The filter memories stay zero on the ported path; they are carried
-        # so that snapshots keep the JAX package's state layout.
         state = {"filter_z": z(L, 2, 2),
                  "send_filter_z": z(L, max(self.num_aux_sends, 1), 2, 2)}
+        if self.layout.dec_lf is not None:
+            state["split_state"] = z(self.n_dry, 3)
+        if self.nfc is not None:
+            state["nfc_z"] = z(L, nfc_ops.NUM_STATES)
+        if self._stab is not None:
+            state["stab_mid"] = z(1, 3)
+            state["stab_ap"] = z(self.n_real)
         if self.layout.mode == panning.RenderMode.HRTF:
             state["hrtf_history"] = z(L, hrtf_mix.HIST)
             state["hrtf_tail"] = z(128, 2)
@@ -566,21 +636,12 @@ class RenderDevice:
 
     # --- what this slice renders ---
 
-    def _check_ported(self, gates: tuple) -> None:
+    def _check_ported(self) -> None:
         """Raise for a scene outside the ported path, naming its item."""
-        if self.layout.mode != panning.RenderMode.HRTF:
-            raise NotImplementedError(
-                "speaker, pairwise-stereo, UHJ/TSME and ambisonic output "
-                "(gain-ramped mix + decode): ROADMAP A11")
-        if self.avg_speaker_dist > 0.0:
-            raise NotImplementedError(
-                "near-field compensation: ROADMAP A10")
+        if self.layout.uhj_output or self.layout.tsme_output:
+            raise NotImplementedError("UHJ/TSME output: ROADMAP A11b")
         if self._has_uhj_voices:
-            raise NotImplementedError("UHJ/Super Stereo voices: ROADMAP A11")
-        if "gate:nosendfilt" not in gates:
-            raise NotImplementedError("send filters: ROADMAP A9")
-        if "gate:nofilt" not in gates:
-            raise NotImplementedError("direct-path filters: ROADMAP A9")
+            raise NotImplementedError("UHJ/Super Stereo voices: ROADMAP A11b")
 
     # Largest blocks per resample call (the JAX package's super-block
     # ladder); bounded here only by the int32 position math.
@@ -622,41 +683,96 @@ class RenderDevice:
             bank_sl=self._bank_sl[1])
 
     @staticmethod
-    def _dry_bus(ev: dict, cfg: dict, x, fade_len: int, no_dry: bool):
+    def _filter(x, z, cf, tgt, cnt, fa):
+        """One filter path through the biquad kernel (``biquad_dual``, the
+        plain version on the CPU) over every line: returns the filtered
+        lines where ``fa`` and x elsewhere.  The path's memories z, current
+        coefficients cf and counter cnt update in place; inactive lines are
+        cleared (DoFilters, voice.cpp:254) with their schedule on target."""
+        y, z2, cf2, cnt2 = biq.biquad_dual(x, z.contiguous(), cf.contiguous(),
+                                           tgt.contiguous(), cnt.contiguous())
+        z.copy_(torch.where(fa[:, None, None], z2, 0.0))
+        cf.copy_(torch.where(fa[:, None, None], cf2, tgt))
+        cnt.copy_(torch.where(fa, cnt2, 0))
+        return torch.where(fa[:, None], y, x)
+
+    def _direct_filter(self, state: dict, ev: dict, cfg: dict, x,
+                       gates: tuple):
+        """The direct path's filters: x through them, or x itself under
+        gate:nofilt, where the memories stay cleared and the schedules
+        converged (the all-inactive result without the pass)."""
+        if "gate:nofilt" in gates:
+            state["filter_z"].zero_()
+            ev["filter_coeffs"].copy_(cfg["filter_target"])
+            ev["filter_counter"].zero_()
+            return x
+        return self._filter(x, state["filter_z"], ev["filter_coeffs"],
+                            cfg["filter_target"], ev["filter_counter"],
+                            cfg["filter_active"])
+
+    def _dry_bus(self, state: dict, ev: dict, cfg: dict, x, fade_len: int,
+                 no_dry: bool):
         """The dry ambisonic bus [n_dry, n], or None under gate:nodry, where
         the current dry gains land on their (zero) targets as the 64-sample
-        ramp would by block end."""
+        ramp would by block end.  With NFC (DoNfcMix, voice.cpp:660-691)
+        the order-0 channels mix x and each higher order mixes x through
+        its NFC filter; rows without NFC bypass it."""
         dry_tgt = torch.where(cfg["playing"][:, None], cfg["dry_tgt"], 0.0)
         if no_dry:
             ev["dry_cur"].copy_(dry_tgt)
             return None
-        dry, cur2 = mix_ops.mix_voices(x, ev["dry_cur"], dry_tgt, ev["fade"],
-                                       fade_len)
-        ev["dry_cur"].copy_(cur2)
-        return dry
+        if self.nfc is None:
+            dry, cur2 = mix_ops.mix_voices(x, ev["dry_cur"], dry_tgt,
+                                           ev["fade"], fade_len)
+            ev["dry_cur"].copy_(cur2)
+            return dry
+        filt, nz2 = nfc_ops.process_orders(
+            x, state["nfc_z"], cfg["nfc_coeffs"], self.nfc,
+            len(self._nfc_groups) - 1)
+        na = cfg["nfc_active"][:, None]
+        state["nfc_z"].copy_(torch.where(na, nz2, 0.0))
+        pieces = []
+        for o, (lo, hi) in enumerate(self._nfc_groups):
+            src = x if o == 0 else torch.where(na, filt[o - 1], x)
+            piece, cur2 = mix_ops.mix_voices(src, ev["dry_cur"][:, lo:hi],
+                                             dry_tgt[:, lo:hi], ev["fade"],
+                                             fade_len)
+            pieces.append(piece)
+            ev["dry_cur"][:, lo:hi] = cur2
+        return torch.cat(pieces, dim=0)
 
     def _wet_buses(self, state: dict, ev: dict, cfg: dict, x,
-                   fade_len: int):
-        """The slots' wet buses [n_slots, B, n]: each send mixes its voices
-        onto the bus of its slot (one grouped contraction per send).  Sends
-        are unfiltered here (gate:nosendfilt), so the send-filter memories
-        stay cleared and their interpolation schedules converged."""
+                   fade_len: int, gates: tuple):
+        """The slots' wet buses [n_slots, B, n]: each send filters the
+        unfiltered x through its own filters (every send, once any send
+        filter is active) and mixes its voices onto the bus of its slot (one
+        grouped contraction per send).  Under gate:nosendfilt the sends
+        take x as it is, their memories stay cleared and their schedules
+        converged."""
         n_slots, B = len(self.slots), self.wet_channels
+        no_filt = "gate:nosendfilt" in gates
         wet = torch.zeros((n_slots, B, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         for snd in range(self.num_aux_sends):
+            xs = x if no_filt else self._filter(
+                x, state["send_filter_z"][:, snd],
+                ev["send_filter_coeffs"][:, snd],
+                cfg["send_filter_target"][:, snd],
+                ev["send_filter_counter"][:, snd],
+                cfg["send_filter_active"][:, snd])
             group = torch.where(cfg["wet_active"][:, snd],
                                 cfg["wet_slot"][:, snd], n_slots)
             wet_tgt = torch.where(cfg["playing"][:, None],
                                   cfg["wet_tgt"][:, snd, :B], 0.0)
             bus, cur2 = mix_ops.mix_voices_grouped(
-                x, ev["wet_cur"][:, snd, :B], wet_tgt, ev["fade"], group,
+                xs, ev["wet_cur"][:, snd, :B], wet_tgt, ev["fade"], group,
                 n_slots + 1, fade_len)
             wet = wet + bus[:n_slots]
             ev["wet_cur"][:, snd, :B] = cur2
-        state["send_filter_z"].zero_()
-        ev["send_filter_coeffs"].copy_(cfg["send_filter_target"])
-        ev["send_filter_counter"].zero_()
+        if no_filt:
+            state["send_filter_z"].zero_()
+            ev["send_filter_coeffs"].copy_(cfg["send_filter_target"])
+            ev["send_filter_counter"].zero_()
         return wet
 
     def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
@@ -692,13 +808,62 @@ class RenderDevice:
         state["direct_split"].copy_(sp2)
         return hrtf_mix.direct_hrtf_accum(scaled, self._direct_coeffs, W)
 
+    def _decode(self, state: dict, dry):
+        """The dry bus [n_dry, T] to the speakers [n_real, T]: the dual-band
+        decode (band split, then dec_hf @ hp + dec_lf @ lp), the single-band
+        dec_hf @ dry, or for Ambi3D output the bus itself; then the front
+        stabilizer.  The products are float32 matmuls at full precision
+        (TF32 is off, see _device.resolve_device)."""
+        if self._dec_lf is not None:
+            hp, lp, sp2 = self._splitter.split(dry, state["split_state"])
+            state["split_state"].copy_(sp2)
+            out = (torch.matmul(self._dec_hf, hp)
+                   + torch.matmul(self._dec_lf, lp))
+        elif self._dec_hf is not None:
+            out = torch.matmul(self._dec_hf, dry)
+        else:
+            out = dry
+        if self._stab is not None:
+            out = self._stabilize(state, out)
+        return out
+
+    # cos/sin of pi/6 and pi/8, the stabilizer's LF and HF center pans.
+    _STAB_PANS = tuple(float(f32(fn(k * (np.pi * 0.5))))
+                       for fn in (np.cos, np.sin) for k in (1 / 3, 1 / 4))
+
+    def _stabilize(self, state: dict, out):
+        """Front-image stabilization (alu.cpp:329-405) of the decoded out.
+        The direct (real-out prefill) mid/side terms are zero here, this
+        renderer having no direct-channel pre-mix, but their all-pass slots
+        still evolve as the reference's: zeros through the L slot, the side
+        signal through the R slot."""
+        li, ri, ci = self._stab["idx"]
+        coeff = self._stab["coeff"]
+        c_pi_3, c_pi_4, s_pi_3, s_pi_4 = self._STAB_PANS
+        side = out[li] - out[ri]
+        mid = out[li] + out[ri]
+        hf, lf, mid_st = f_ops.band_split(mid[None], state["stab_mid"], coeff)
+        state["stab_mid"].copy_(mid_st)
+        ap_in = out.clone()
+        ap_in[li] = 0.0
+        ap_in[ri] = side
+        ap_out, ap_z = f_ops.all_pass(ap_in, state["stab_ap"], coeff)
+        state["stab_ap"].copy_(ap_z)
+        m = lf[0] * c_pi_3 + hf[0] * c_pi_4 + ap_out[li]
+        c = lf[0] * s_pi_3 + hf[0] * s_pi_4
+        s = ap_out[ri]
+        ap_out[li] = (m + s) * 0.5
+        ap_out[ri] = (m - s) * 0.5
+        ap_out[ci] = ap_out[ci] + c * 0.5
+        return ap_out
+
     @staticmethod
     def _advance(cfg: dict, ev: dict, n: int) -> None:
         """End-of-window evolution, in place: positions advance and looping
         voices rebase into [loop_start, loop_end) (congruent mod the loop
         length, so reads are unchanged), setting has_wrapped on a wrap —
-        the same integer math as the host mirror (Voice.advance).  Filter
-        schedules stay converged and fades expire."""
+        the same integer math as the host mirror (Voice.advance).  Fades
+        expire."""
         pi2, pf2 = rs_ops.advance_positions(ev["pos_int"], ev["pos_frac"],
                                             cfg["increment"], n)
         ls, le = cfg["loop_start"], cfg["loop_end"]
@@ -708,34 +873,39 @@ class RenderDevice:
             rebase, ls + torch.remainder(pi2 - ls, ll), pi2))
         ev["pos_frac"].copy_(pf2)
         ev["has_wrapped"] |= rebase
-        ev["filter_coeffs"].copy_(cfg["filter_target"])
-        ev["filter_counter"].zero_()
         ev["fade"].zero_()
 
     def _render_one(self, state: dict, ev: dict, cfg: dict, pool, T: int,
-                    kind: str, any_fade: bool, gates: tuple) -> torch.Tensor:
-        """One block, per-block HRTF branch: returns out [2, T]; state and
-        ev advance in place."""
+                    kind: str, any_fade: bool, gates: tuple,
+                    x_pre=None) -> torch.Tensor:
+        """One block: returns out [n_real, T]; state and ev advance in
+        place.  ``x_pre`` is this block's slice of a super-block resample;
+        without it the block resamples itself."""
         fade_len = min(GAIN_FADE_SAMPLES, T)
-        x = self._resample(pool, cfg, ev, T, kind)
+        x = (self._resample(pool, cfg, ev, T, kind) if x_pre is None
+             else x_pre)
         x = torch.where(cfg["active"][:, None], x, 0.0)
-        dry = self._dry_bus(ev, cfg, x, fade_len, "gate:nodry" in gates)
+        x_mix = self._direct_filter(state, ev, cfg, x, gates)
+        dry = self._dry_bus(state, ev, cfg, x_mix, fade_len,
+                            "gate:nodry" in gates)
         if self.slots:
-            wet = self._wet_buses(state, ev, cfg, x, fade_len)
+            wet = self._wet_buses(state, ev, cfg, x, fade_len, gates)
             dry = dry + self._run_slots(state, cfg, wet, T, T)
-        x_cat = torch.cat([state["hrtf_history"], x], dim=1)
-        g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
-        y_ext = hrtf_mix.hrtf_voices_accum(
-            x_cat, cfg["hrtf_coeffs"], cfg["hrtf_delay"], g_eff,
-            cfg["hrtf_old_coeffs"], cfg["hrtf_old_delay"],
-            cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T, fade_len,
-            any_fade)
-        if dry is not None:
-            y_ext = y_ext + self._direct_accum(state, dry, T)
-        out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
-        state["hrtf_history"].copy_(x_cat[:, T:])
-        state["hrtf_tail"].copy_(new_tail)
-        state["filter_z"].zero_()
+        if self.layout.mode == panning.RenderMode.HRTF:
+            x_cat = torch.cat([state["hrtf_history"], x_mix], dim=1)
+            g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
+            y_ext = hrtf_mix.hrtf_voices_accum(
+                x_cat, cfg["hrtf_coeffs"], cfg["hrtf_delay"], g_eff,
+                cfg["hrtf_old_coeffs"], cfg["hrtf_old_delay"],
+                cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T, fade_len,
+                any_fade)
+            if dry is not None:
+                y_ext = y_ext + self._direct_accum(state, dry, T)
+            out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
+            state["hrtf_history"].copy_(x_cat[:, T:])
+            state["hrtf_tail"].copy_(new_tail)
+        else:
+            out = self._decode(state, dry)
         self._advance(cfg, ev, T)
         return out
 
@@ -743,8 +913,9 @@ class RenderDevice:
                             T: int, sb: int, kind: str, any_fade: bool,
                             gates: tuple) -> torch.Tensor:
         """sb blocks as ONE resample + ONE [2*192, V] x [V, sb*T] contraction
-        + skew-sum + fold (the fused super-block HRTF branch), with the wet
-        buses, the effects and the dry bus at the same width: out [2, sb*T].
+        + skew-sum + fold (the fused super-block HRTF branch, for scenes
+        without filters), with the wet buses, the effects and the dry bus at
+        the same width: out [2, sb*T].
 
         Every fade ramp spans the window's first fade_len samples and holds
         after, exactly the per-block evolution, since fades are nonzero only
@@ -754,6 +925,7 @@ class RenderDevice:
         W = sb * T
         fade_len = min(GAIN_FADE_SAMPLES, T)
         x_all = self._resample(pool, cfg, ev, W, kind)
+        self._direct_filter(state, ev, cfg, x_all, gates)
         g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
         y_ext = hrtf_mix.hrtf_voices_accum_split(
             state["hrtf_history"], x_all, cfg["hrtf_coeffs"],
@@ -762,9 +934,10 @@ class RenderDevice:
             cfg["active"], W, fade_len, any_fade)
         contrib = None
         if self.slots:
-            wet = self._wet_buses(state, ev, cfg, x_all, fade_len)
+            wet = self._wet_buses(state, ev, cfg, x_all, fade_len, gates)
             contrib = self._run_slots(state, cfg, wet, W, T)
-        dry = self._dry_bus(ev, cfg, x_all, fade_len, "gate:nodry" in gates)
+        dry = self._dry_bus(state, ev, cfg, x_all, fade_len,
+                            "gate:nodry" in gates)
         if dry is not None:
             if contrib is not None:
                 dry = dry + contrib
@@ -772,31 +945,51 @@ class RenderDevice:
         out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], W)
         state["hrtf_history"].copy_(x_all[:, W - hrtf_mix.HIST:])
         state["hrtf_tail"].copy_(new_tail)
-        state["filter_z"].zero_()
         self._advance(cfg, ev, W)
         return out
+
+    def _fused(self, gates: tuple) -> bool:
+        """Whether multi-block dispatches may take the fused super-block
+        branch: HRTF output, no direct filter, no send filter feeding a
+        slot, no NFC."""
+        return ("gate:nofilt" in gates
+                and (not self.slots or "gate:nosendfilt" in gates)
+                and self.layout.mode == panning.RenderMode.HRTF
+                and self.nfc is None)
 
     def _render_chunk(self, state: dict, ev: dict, cfg: dict, pool, T: int,
                       n_blocks: int, plan: tuple[str, int], resets,
                       any_fade: bool, gates: tuple) -> torch.Tensor:
-        """n_blocks consecutive blocks: out [n_blocks, 2, T] on the device.
+        """n_blocks consecutive blocks: out [n_blocks, n_real, T] on the
+        device.
 
         ``resets`` ([L] bool, or None) clears re-allocated rows' carried
         memories first; ``any_fade`` is the host's knowledge that some row
         fades in the first block; ``gates`` the scene's _graph_gates."""
         if resets is not None:
             state["filter_z"].masked_fill_(resets[:, None, None], 0.0)
-            state["hrtf_history"].masked_fill_(resets[:, None], 0.0)
             state["send_filter_z"].masked_fill_(resets[:, None, None, None],
                                                 0.0)
+            for key in ("hrtf_history", "nfc_z"):
+                if key in state:
+                    state[key].masked_fill_(resets[:, None], 0.0)
         kind, sb = plan
-        out = torch.empty((n_blocks, 2, T), dtype=torch.float32,
+        out = torch.empty((n_blocks, self.n_real, T), dtype=torch.float32,
                           device=pool.device)
-        if sb > 1:
+        if sb > 1 and self._fused(gates):
             for i in range(n_blocks // sb):
                 o = self._render_super_block(state, ev, cfg, pool, T, sb,
                                              kind, any_fade and i == 0, gates)
                 out[i * sb:(i + 1) * sb] = o.reshape(2, sb, T).transpose(0, 1)
+        elif sb > 1:
+            # One resample per super-block; each block renders its slice.
+            for i in range(n_blocks // sb):
+                x_all = self._resample(pool, cfg, ev, sb * T, kind)
+                for b in range(sb):
+                    out[i * sb + b] = self._render_one(
+                        state, ev, cfg, pool, T, kind,
+                        any_fade and i == 0 and b == 0, gates,
+                        x_pre=x_all[:, b * T:(b + 1) * T])
         else:
             for b in range(n_blocks):
                 out[b] = self._render_one(state, ev, cfg, pool, T, kind,
@@ -878,7 +1071,7 @@ class RenderDevice:
             ev, any_fade = self._ev_dev, self._ev_fade
 
         gates = self._graph_gates()
-        self._check_ported(gates)
+        self._check_ported()
         resets = (self._cfg_dev["reset_rows"] if self._cfg_has_resets
                   else None)
         blocks = self._render_chunk(
@@ -905,13 +1098,20 @@ class RenderDevice:
     def _cfg_from_table(self) -> dict:
         """Upload the host ParamTable as the device config dict, with the
         unit kernel's constant per-voice tap weights (valid whenever the
-        unit plan is selected: pos_frac is invariant at unit increment)."""
+        unit plan is selected: pos_frac is invariant at unit increment).
+        With NFC, nfc_w0 becomes per-row filter coefficients on the host
+        (NfcFilterAdjust, nfc.cpp:75-222); -1 rows get the create-state
+        identity filter."""
         dev = self.torch_device
         cfg = {k: _to_dev(getattr(self.table, k), dev)
                for k in ParamTable._CONFIG if k != "nfc_w0"}
         t = self.table
         cfg["rs_unit_w"] = _to_dev(rs_unit.unit_weights_np(
             self._bank, t.bank_row, t.sf, t.pos_frac, self._taps), dev)
+        if self.nfc is not None:
+            cfg["nfc_coeffs"] = _to_dev(np.where(
+                (t.nfc_w0 < 0.0)[:, None], self.nfc.identity_coeffs(1),
+                self.nfc.adjust(np.maximum(t.nfc_w0, 0.0))), dev)
         return cfg
 
     # --- checkpoint / resume ---

@@ -1,5 +1,10 @@
 """Filters of the render path on torch tensors (port of ops/filters.py).
 
+* ``biquad_dual_interp``: the voices' direct and send filters, two
+  cascaded TDF2 biquads per line with the 32-sample coefficient lerp,
+  sample by sample.  It is the plain version of the Hopper kernel
+  ``csrc/biquad.cu`` (``ops/kernels/biquad.py``), which repeats its
+  arithmetic in the same order and equals it bit for bit.
 * ``_biquad_chunked_single``: one TDF2 biquad per line in the balanced
   companion form, chunk-parallel (the reverb's band, T60 and master
   filters).  Split into its constants (``biquad_consts``) and its
@@ -7,17 +12,20 @@
   one coefficient set computes the constants once; the values are the same
   either way.  ``ops/kernels/reverb.py`` and ``csrc/reverb.cu`` repeat this
   arithmetic in the same order.
-* ``band_split_hf_scale``: the sequential band splitter with an HF scale
-  (the reverb's first-order upmix).
-* ``BandSplitterKernels.hf_scale``: the chunk-parallel band splitter of the
-  HRTF dry bus.
+* ``linear2_chunked``: a 2-state linear filter, chunk-parallel (the NFC
+  sections of ``ops/nfc.py``).
+* ``band_split``, ``band_split_hf_scale`` and ``all_pass``: the sequential
+  band splitter (the front stabiliser; with an HF scale, the reverb's
+  first-order upmix) and the phase-matching all-pass.
+* ``BandSplitterKernels``: the chunk-parallel band splitter of the dry bus
+  (``split`` for the dual-band speaker decode, ``hf_scale`` for the HRTF
+  decode, ``scale``).
 * the host half: the biquad interpolation schedule and the band-splitter
   coefficient, in numpy.
 
 Every elementwise expression keeps the JAX package's operand order, so the
 two differ only where XLA:CPU contracts ``a + b*c`` into FMA or reorders a
-contraction.  The direct and send filters (``biquad_dual_interp*``) are
-ROADMAP A9.
+contraction.
 """
 
 from __future__ import annotations
@@ -28,6 +36,60 @@ import torch
 INTERP_STEPS = 8
 SAMPLES_PER_STEP = 32
 INTERP_SAMPLES = INTERP_STEPS * SAMPLES_PER_STEP  # 256
+
+
+# --- the voices' dual biquad ---------------------------------------------------
+
+
+def lerp_coeffs(cf: torch.Tensor, target: torch.Tensor, cnt: torch.Tensor):
+    """End-of-step coefficient update (biquad.cpp:310-331): the counter
+    drops by one step, and the current coefficients [V, 2, 5] move the
+    fraction a = 1/(steps_left+1) toward their targets, or land on them when
+    the counter reaches 0.  Lines whose counter was 0 keep theirs.
+    Returns (cf', cnt')."""
+    cnt2 = torch.clamp(cnt - SAMPLES_PER_STEP, min=0)
+    steps = (cnt2 // SAMPLES_PER_STEP).to(torch.float32) + 1.0
+    a = torch.ones_like(steps) / steps
+    lerped = cf + (target - cf) * a[:, None, None]
+    was_active = (cnt > 0)[:, None, None]
+    done = (cnt2 == 0)[:, None, None]
+    return torch.where(was_active, torch.where(done, target, lerped), cf), cnt2
+
+
+def biquad_dual_interp(x: torch.Tensor, z: torch.Tensor, coeffs: torch.Tensor,
+                       target: torch.Tensor, counter: torch.Tensor):
+    """Dual (chained lp + hp) interpolating biquad over a block
+    (BiquadInterpFilter::dualProcess, biquad.cpp:284-343).
+
+    x [V, T] with T % 32 == 0; z [V, 2, 2] TDF2 states ([:, filter, (z1,
+    z2)]); coeffs, target [V, 2, 5] ([b0, b1, b2, a1, a2]); counter [V]
+    int32 samples left in the interpolation (>= 0).  Every 32 samples the
+    coefficients step with ``lerp_coeffs``.  Each product and sum rounds on
+    its own, in the reference's TDF2 order.
+    Returns (y [V, T], z' [V, 2, 2], coeffs' [V, 2, 5], counter' [V])."""
+    V, T = x.shape
+    if T % SAMPLES_PER_STEP:
+        raise ValueError(f"biquad_dual_interp: T={T} is not a multiple of "
+                         f"{SAMPLES_PER_STEP}")
+    xt = x.T.contiguous()
+    z00, z01, z10, z11 = z[:, 0, 0], z[:, 0, 1], z[:, 1, 0], z[:, 1, 1]
+    cf, cnt = coeffs, counter
+    ys = []
+    for s in range(0, T, SAMPLES_PER_STEP):
+        b00, b01, b02, a01, a02 = cf[:, 0].unbind(1)
+        b10, b11, b12, a11, a12 = cf[:, 1].unbind(1)
+        for t in range(s, s + SAMPLES_PER_STEP):
+            xin = xt[t]
+            y0 = xin * b00 + z00
+            z00 = xin * b01 - y0 * a01 + z01
+            z01 = xin * b02 - y0 * a02
+            y1 = y0 * b10 + z10
+            z10 = y0 * b11 - y1 * a11 + z11
+            z11 = y0 * b12 - y1 * a12
+            ys.append(y1)
+        cf, cnt = lerp_coeffs(cf, target, cnt)
+    z2 = torch.stack([z00, z01, z10, z11], 1).reshape(V, 2, 2)
+    return torch.stack(ys, 1), z2, cf, cnt
 
 
 # --- the chunked biquad -------------------------------------------------------
@@ -109,7 +171,91 @@ def _biquad_chunked_single(x: torch.Tensor, z: torch.Tensor,
     return biquad_apply(x, z, biquad_consts(cf_all, chunk))
 
 
+def linear2_chunked(x: torch.Tensor, s: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    chunk: int = SAMPLES_PER_STEP):
+    """2-state linear filter y = C*s + D*x, s' = A*s + B*x with per-line
+    constant matrices, chunk-parallel like ``biquad_apply``.
+
+    x [L, T]; s [L, 2]; A [L, 2, 2]; B, C [L, 2]; D [L].
+    Returns (y [L, T], s' [L, 2])."""
+    L, T = x.shape
+    N = T // chunk
+    A00, A01, A10, A11 = A[:, 0, 0], A[:, 0, 1], A[:, 1, 0], A[:, 1, 1]
+    B0, B1 = B[:, 0], B[:, 1]
+    C0, C1 = C[:, 0], C[:, 1]
+    xs = x.T.reshape(N, chunk, L).transpose(0, 1)                   # [K,N,L]
+
+    # Zero-state responses and input-driven end states, all chunks at once.
+    s0 = torch.zeros((N, L), dtype=x.dtype, device=x.device)
+    s1 = torch.zeros_like(s0)
+    y_zero = []
+    for xk in xs:
+        y_zero.append(C0 * s0 + C1 * s1 + D * xk)
+        s0, s1 = (A00 * s0 + A01 * s1 + B0 * xk,
+                  A10 * s0 + A11 * s1 + B1 * xk)
+
+    # A^chunk by repeated squaring (chunk is a power of two).
+    M00, M01, M10, M11 = A00, A01, A10, A11
+    for _ in range(chunk.bit_length() - 1):
+        M00, M01, M10, M11 = (M00 * M00 + M01 * M10, M00 * M01 + M01 * M11,
+                              M10 * M00 + M11 * M10, M10 * M01 + M11 * M11)
+
+    # Sequential chunk-state recurrence (N steps).
+    c0, c1 = s[:, 0], s[:, 1]
+    st0, st1 = [], []
+    for n in range(N):
+        st0.append(c0)
+        st1.append(c1)
+        c0, c1 = (M00 * c0 + M01 * c1 + s0[n],
+                  M10 * c0 + M11 * c1 + s1[n])
+
+    # Initial-state responses (C*A^k)*s_start.
+    w0, w1 = C0, C1
+    y_state = []
+    st0, st1 = torch.stack(st0), torch.stack(st1)                   # [N,L]
+    for _ in range(chunk):
+        y_state.append(w0 * st0 + w1 * st1)
+        w0, w1 = A00 * w0 + A10 * w1, A01 * w0 + A11 * w1
+    y = (torch.stack(y_zero) + torch.stack(y_state)).permute(2, 1, 0)
+    return y.reshape(L, T), torch.stack([c0, c1], -1)
+
+
 # --- band splitters (core/filters/splitter.cpp) -------------------------------
+
+
+def band_split(x: torch.Tensor, state: torch.Tensor, coeff):
+    """BandSplitter::process, sample by sample: (hp [L, T], lp [L, T],
+    state' [L, 3]); state = (lp_z1, lp_z2, ap_z1)."""
+    ap = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
+    lp = ap * 0.5 + 0.5
+    lp_z1, lp_z2, ap_z1 = state[:, 0], state[:, 1], state[:, 2]
+    hps, lps = [], []
+    for xin in x.T:
+        d0 = (xin - lp_z1) * lp
+        lp_y0 = lp_z1 + d0
+        lp_z1 = lp_y0 + d0
+        d1 = (lp_y0 - lp_z2) * lp
+        lp_y1 = lp_z2 + d1
+        lp_z2 = lp_y1 + d1
+        ap_y = xin * ap + ap_z1
+        ap_z1 = xin - ap_y * ap
+        hps.append(ap_y - lp_y1)
+        lps.append(lp_y1)
+    return (torch.stack(hps, 1), torch.stack(lps, 1),
+            torch.stack([lp_z1, lp_z2, ap_z1], -1))
+
+
+def all_pass(x: torch.Tensor, z1: torch.Tensor, coeff):
+    """processAllPass, the phase-matching all-pass, sample by sample:
+    (y [L, T], z1' [L])."""
+    c = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
+    ys = []
+    for xin in x.T:
+        y = xin * c + z1
+        z1 = xin - y * c
+        ys.append(y)
+    return torch.stack(ys, 1), z1
 
 
 def band_split_hf_scale(x: torch.Tensor, state: torch.Tensor, coeff,
@@ -213,12 +359,24 @@ class BandSplitterKernels:
         ap = ap_zero + torch.einsum("dnj,mj->dnm", s_starts, m["W_ap"])
         return lp.reshape(D, T), ap.reshape(D, T), s
 
+    def split(self, x: torch.Tensor, state: torch.Tensor):
+        """BandSplitter::process: (hp, lp, state')."""
+        lp, ap, s = self._run(x, state)
+        return ap - lp, lp, s
+
     def hf_scale(self, x: torch.Tensor, state: torch.Tensor, hfscale):
         """processHfScale: (ap - lp) * hf + lp.  hfscale [D]."""
         lp, ap, s = self._run(x, state)
         hf = torch.as_tensor(hfscale, dtype=torch.float32,
                              device=x.device).reshape(-1, 1)
         return (ap - lp) * hf + lp, s
+
+    def scale(self, x: torch.Tensor, state: torch.Tensor, hfscale, lfscale):
+        """processScale: separate HF and LF gains, scalars or [D]."""
+        lp, ap, s = self._run(x, state)
+        as_col = lambda g: torch.as_tensor(  # noqa: E731
+            g, dtype=torch.float32, device=x.device).reshape(-1, 1)
+        return (ap - lp) * as_col(hfscale) + lp * as_col(lfscale), s
 
 
 # --- host half ----------------------------------------------------------------

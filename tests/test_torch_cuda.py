@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
 from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
 from openal_soft_tpu_torch.ops.kernels import reverb as t_rev
@@ -94,3 +95,27 @@ def test_loaded_scene_on_the_card_matches_the_cpu(cuda):
             <= chip_smoke.LOADED_TOL
     assert t_gen.resample_gen.launches > before[0]
     assert t_rev.reverb_pipeline.launches > before[1]
+
+
+@pytest.mark.parametrize("counters", ["0", "256", "mixed"])
+@pytest.mark.parametrize("V,T", [(100, 128), (256, 1024), (64, 16384)])
+def test_biquad_kernel_equals_plain_version(cuda, V, T, counters):
+    args = chip_smoke.biquad_case(np.random.default_rng(V + T), V, T,
+                                  counters, cuda)
+    before = t_biq.biquad_dual.launches
+    got = t_biq.biquad_dual(*args)
+    torch.cuda.synchronize()
+    assert t_biq.biquad_dual.launches == before + 1
+    for a, b in zip(got, t_biq.biquad_dual_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", list(chip_smoke.SPEAKER_SCENES))
+def test_filtered_scene_on_the_card_matches_the_cpu(cuda, scene):
+    g = chip_smoke.speaker_scene(scene, 64, "cuda")
+    c = chip_smoke.speaker_scene(scene, 64, "cpu")
+    before = t_biq.biquad_dual.launches
+    for n in (8192, 4096, 100):
+        assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
+            <= chip_smoke.SPEAKERS_TOL
+    assert t_biq.biquad_dual.launches > before

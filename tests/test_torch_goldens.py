@@ -1,0 +1,213 @@
+"""The C++ reference's goldens through the port on the CPU: speaker output
+(pairwise stereo, a custom dual-band ambdec decoder with distance
+compensation, the front stabilizer), a direct-path filter, EAXReverb on
+stereo output, and Ambi3D output with near-field compensation.
+
+The scenes are those of tests/test_e2e_stereo.py, test_e2e_reverb.py,
+test_e2e_ambdec.py and test_e2e_nfc.py, and the tolerances theirs, on
+devices of 4 voices (the scenes play 1 or 2; inactive rows are masked, so
+the capacity does not change the output, only the CPU's work).  The
+goldens are read, never written (ROADMAP C3).  The port runs the direct
+filter as the sample-sequential TDF2 (the biquad kernel's plain version),
+so stereo_filtered_tone sits far below its 1e-4 budget, which the JAX
+package's chunk-parallel form needs.
+
+    python -m tests.test_torch_goldens
+
+prints each golden's measured deviation.
+"""
+
+import contextlib
+import os
+import pathlib
+import tempfile
+
+import numpy as np
+import pytest
+
+from openal_soft_tpu_torch.alc import config as t_conf
+from openal_soft_tpu_torch.alc.device import LoopbackDevice
+from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
+from tests.test_e2e_ambdec import AMBDEC, AMBDEC_NOCENTER
+from tests.test_e2e_ambdec import _sources as ambdec_sources
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+
+
+def _golden(name: str) -> np.ndarray:
+    return np.load(GOLDEN / f"{name}.npz")["out"]
+
+
+def _tone(n, freq, rate, gain=0.5):
+    t = np.arange(n) / rate
+    return (gain * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+
+def _play(ctx, data, rate, **props):
+    buf = ctx.create_buffer()
+    buf.set_data(data, "mono", "float32", rate)
+    src = ctx.create_source()
+    src.buffer(buf)
+    src.looping = True
+    for k, v in props.items():
+        src.set(k, v)
+    return src
+
+
+@contextlib.contextmanager
+def _conf(text: str, files: dict | None = None):
+    """The port reads ``text`` as its alsoft.conf while devices are built;
+    ``files`` (name -> text) are written beside it and ``{dir}`` in
+    ``text`` names their directory."""
+    old = os.environ.get("ALSOFT_CONF")
+    with tempfile.TemporaryDirectory() as d:
+        for name, content in (files or {}).items():
+            pathlib.Path(d, name).write_text(content)
+        path = pathlib.Path(d, "alsoft.conf")
+        path.write_text(text.format(dir=d))
+        os.environ["ALSOFT_CONF"] = str(path)
+        t_conf.load_config(reload=True)
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["ALSOFT_CONF"]
+            else:
+                os.environ["ALSOFT_CONF"] = old
+            t_conf.load_config(reload=True)
+
+
+_NOISE = (np.random.default_rng(7).standard_normal(30000) * 0.2
+          ).astype(np.float32)
+# (golden, device rate, [(data, buffer rate, props)]), test_e2e_stereo.py's.
+STEREO = {
+    "stereo_center_tone": (44100, [(_tone(22050, 441.0, 44100), 44100, {})]),
+    "stereo_panned_tone": (44100, [(_tone(22050, 300.0, 44100), 44100,
+                                    {"position": (2.0, 0.5, -1.5)})]),
+    "stereo_resampled_tone": (48000, [(_tone(22050, 500.0, 44100), 44100,
+                                       {"position": (-1.0, 0.0, -1.0)})]),
+    "stereo_pitch_multi": (44100, [
+        (_tone(20000, 220.0, 44100), 44100,
+         {"pitch": 1.5, "position": (1.0, 0.0, -2.0)}),
+        (_NOISE, 44100, {"pitch": 0.77, "gain": 0.8,
+                         "position": (-3.0, 0.0, -1.0)})]),
+    "stereo_filtered_tone": (44100, [(_tone(22050, 700.0, 44100), 44100,
+                                      {"position": (0.5, 0.0, -1.0),
+                                       "direct_gain_hf": 0.3})]),
+}
+REVERB = {
+    "fx_reverb_default": {},
+    "fx_reverb_custom": {
+        "density": 0.35, "diffusion": 0.8, "gain": 0.32, "gain_hf": 0.6,
+        "gain_lf": 0.9, "decay_time": 0.9, "decay_hf_ratio": 0.6,
+        "decay_lf_ratio": 1.2, "reflections_gain": 0.4,
+        "reflections_delay": 0.02, "late_reverb_gain": 0.9,
+        "late_reverb_delay": 0.03, "modulation_time": 0.4,
+        "modulation_depth": 0.5, "hf_reference": 4000.0,
+        "lf_reference": 300.0},
+}
+# The JAX package's budgets.  The golden's first frames not compared: the
+# reference's distance-compensation delay lines start uninitialised.
+TOL = dict.fromkeys(STEREO, 1e-5) | dict.fromkeys(REVERB, 1e-5) | {
+    "stereo_filtered_tone": 1e-4, "ambdec_itu51": 1e-4, "ambdec_stab": 1e-4,
+    "nfc_ambi3d": 1e-4}
+SKIP = {"ambdec_itu51": 128}
+
+
+def render_stereo(name: str):
+    rate, sources = STEREO[name]
+    dev = LoopbackDevice(frequency=rate, channels="stereo",
+                         sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    srcs = [_play(ctx, data, brate, **props) for data, brate, props in sources]
+    for src in srcs:
+        src.play()
+    return dev, dev.render_samples(4096)
+
+
+def render_reverb(name: str):
+    """test_e2e_reverb.py's scene: one voice sending to an EAXReverb slot,
+    pairwise stereo output, 3 x 8192 frames."""
+    dev = LoopbackDevice(frequency=48000, channels="stereo",
+                         sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    slot = ctx.create_aux_slot()
+    eff = ctx.create_effect("eaxreverb")
+    for k, v in REVERB[name].items():
+        eff.set(k, v)
+    slot.set_effect(eff)
+    src = _play(ctx, _tone(16000, 440.0, 48000, 0.4), 48000,
+                position=(0.5, 0.2, -1.0))
+    src.send(slot, 0)
+    src.play()
+    return dev, dev.render_samples(3 * 8192)
+
+
+def render_ambdec(name: str):
+    """test_e2e_ambdec.py's surround51 scenes: its custom dual-band preset
+    with unequal speaker distances (ambdec_itu51), or its single-band
+    preset without a center and the front stabilizer on (ambdec_stab)."""
+    preset, extra = ((AMBDEC, "") if name == "ambdec_itu51"
+                     else (AMBDEC_NOCENTER, "front-stablizer = true\n"))
+    with _conf(extra + "[decoder]\nsurround51 = {dir}/test51.ambdec\n",
+               {"test51.ambdec": preset}):
+        dev = LoopbackDevice(frequency=48000, channels="surround51",
+                             sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    for s in ambdec_sources():
+        _play(ctx, s["data"], 48000, position=s["position"]).play()
+    return dev, dev.render_samples(4096)
+
+
+def render_nfc(name: str):
+    """test_e2e_nfc.py's scene: order-2 Ambi3D output with NFC at a 1.5 m
+    control distance; a distant tone and a head-relative noise at the
+    origin (the w1 alignment filter)."""
+    with _conf("[decoder]\nnfc = true\nspeaker-dist = 1.5\n"):
+        dev = LoopbackDevice(frequency=48000, channels="ambi3d",
+                             sample_type="float32", capacity=4,
+                             ambi_order=2, device="cpu")
+    ctx = dev.create_context()
+    t = np.arange(24000) / 48000
+    _play(ctx, (0.5 * np.sin(2 * np.pi * 441.0 * t)).astype(np.float32),
+          48000, position=(1.0, 0.5, -2.0)).play()
+    noise = (np.random.default_rng(3).standard_normal(20000) * 0.2
+             ).astype(np.float32)
+    _play(ctx, noise, 48000, position=(0.0, 0.0, 0.0),
+          head_relative=True).play()
+    return dev, dev.render_samples(4096)
+
+
+RENDER = (dict.fromkeys(STEREO, render_stereo)
+          | dict.fromkeys(REVERB, render_reverb)
+          | {"ambdec_itu51": render_ambdec, "ambdec_stab": render_ambdec,
+             "nfc_ambi3d": render_nfc})
+
+
+def deviation(name: str):
+    """(device, output, max abs deviation from the golden)."""
+    dev, got = RENDER[name](name)
+    skip = SKIP.get(name, 0)
+    return dev, got, float(np.abs(got[skip:] - _golden(name)[skip:]).max())
+
+
+@pytest.mark.parametrize("name", list(RENDER))
+def test_golden_through_the_port(name):
+    before = t_biq.biquad_dual.launches
+    dev, got, err = deviation(name)
+    assert t_biq.biquad_dual.launches == before    # plain on the CPU
+    assert err <= TOL[name], f"{name}: max deviation {err:.3e}"
+    if name == "ambdec_itu51":
+        assert dev._dec_lf is not None and dev._dist_comp is not None
+        assert np.abs(got[:128]).max() < 1.0
+    if name == "ambdec_stab":
+        assert dev._stab is not None
+        assert np.abs(got[:, 2]).max() > 1e-4      # FC gets the stabilized mid
+    if name == "nfc_ambi3d":
+        assert dev.nfc is not None
+
+
+if __name__ == "__main__":
+    for name in RENDER:
+        print(f"{name}: max deviation {deviation(name)[2]:.3e} "
+              f"(tolerance {TOL[name]:g})")

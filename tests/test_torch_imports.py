@@ -44,6 +44,28 @@ for pitch in (0.7, 1.6):
     src.play()
 out = np.concatenate([dev.render_samples(4096), dev.render_samples(1024)])
 assert out.shape == (5120, 2) and np.isfinite(out).all() and out.any()
+# A filtered speaker scene: stereo pairwise output, a lowpass direct filter
+# and a lowpass send filter into the slot.
+spk = LoopbackDevice(capacity=4, device="cpu")
+sctx = spk.create_context()
+sslot = sctx.create_aux_slot()
+sslot.set_effect(sctx.create_effect("eaxreverb"))
+sbuf = sctx.create_buffer()
+sbuf.set_data((0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
+              "mono", "float32", 48000)
+flt = sctx.create_filter("lowpass")
+flt.set("gain_hf", 0.4)
+src = sctx.create_source()
+src.buffer(sbuf)
+src.looping = True
+src.set("position", (1.0, 0.0, -1.0))
+src.set("pitch", 1.3)
+src.direct_filter(flt)
+src.send(sslot, 0, flt)
+src.play()
+out = spk.render_samples(2048)
+assert "gate:nofilt" not in spk._graph_gates()
+assert out.shape == (2048, 2) and np.isfinite(out).all() and out.any()
 """
 
 _BLOCKED = r"""

@@ -146,32 +146,46 @@ def _one_voice(hrtf: bool):
     return dev, ctx, src
 
 
-def test_unported_branches_raise():
-    """What the port does not render yet raises, naming its item: a
-    direct filter, a send filter, a chorus slot, speaker output."""
-    dev, ctx, src = _one_voice(hrtf=True)
-    flt = ctx.create_filter("lowpass")
-    flt.set("gain_hf", 0.3)
-    src.direct_filter(flt)
+def test_unported_branches_raise(tmp_path, monkeypatch):
+    """What the port does not render yet raises, naming its item: UHJ/TSME
+    output and UHJ voices (A11b), a chorus slot (A12).  Filters and speaker
+    output render (tests/test_torch_speakers.py)."""
+    from openal_soft_tpu_torch.alc import config as t_conf
+
+    dev, ctx, src = _one_voice(hrtf=False)
+    buf = ctx.create_buffer()
+    buf.set_data(np.stack([_tone(4800, 440.0)] * 2, axis=1), "uhj2",
+                 "float32", RATE)
+    src.buffer(buf)
     src.play()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A11b"):
+        dev.render_samples(1024)
+
+    conf = tmp_path / "alsoft.conf"
+    conf.write_text("stereo-encoding = uhj\n")
+    monkeypatch.setenv("ALSOFT_CONF", str(conf))
+    t_conf.load_config(reload=True)
+    try:
+        dev, ctx, src = _one_voice(hrtf=False)
+    finally:
+        monkeypatch.delenv("ALSOFT_CONF")
+        t_conf.load_config(reload=True)
+    assert dev.layout.uhj_output
+    src.play()
+    with pytest.raises(NotImplementedError, match="A11b"):
         dev.render_samples(1024)
 
     dev, ctx, src = _one_voice(hrtf=True)
     slot = ctx.create_aux_slot()
-    slot.set_effect(ctx.create_effect("eaxreverb"))
-    src.send(slot, 0, flt)
-    src.play()
-    with pytest.raises(NotImplementedError, match="A9"):
-        dev.render_samples(1024)
-
     with pytest.raises(NotImplementedError, match="A12"):
         slot.set_effect(ctx.create_effect("chorus"))
 
-    dev, ctx, src = _one_voice(hrtf=False)
+    dev, ctx, src = _one_voice(hrtf=False)       # pairwise stereo renders
+    flt = ctx.create_filter("lowpass")
+    flt.set("gain_hf", 0.3)
+    src.direct_filter(flt)
     src.play()
-    with pytest.raises(NotImplementedError, match="A11"):
-        dev.render_samples(1024)
+    assert np.isfinite(dev.render_samples(1024)).all()
 
 
 def test_unit_plan_runs_through_the_wrapper():
