@@ -50,13 +50,34 @@ result:
                 decode, front stabilizer), an HRTF scene with direct
                 filters and an order-2 Ambi3D scene with NFC; multi-block
                 (8192 frames), per-block (4096) and odd sizes
+ 16. kernel     resample_span against its plain version: V 256; W 128,
+                1024, 1152, 16512 and 16640; taps 1, 2, 4, 24 and 48;
+                increments 0.25x..10x; the branch cases of phase 3 and
+                windows at the pool's end: bit-equal required
+ 17. kernel     resample_voice against its plain version, loops shorter
+                than the window included: bit-equal required
+ 18. timing     resample_span, resample_gen and resample_voice and their
+                plain versions at [4096, 16512] on a 268 MB pool, and
+                resample_span and resample_gen at the loaded scene's
+                [4096, 16384] on its 9.2 MB pool (CUDA events)
+ 19. uhj_big_pool  4096 looping mono voices at pitch 2**U(-1,1) over 1024
+                distinct 4-second buffers, 16 UHJ2 ambience beds and 8
+                Super Stereo stems of 20 s, on a UHJ stereo device: a
+                ~970 MB pool, 19x the card's L2; resample_span must launch
+                and resample_gen must not; the output must be finite and
+                nonzero
+ 20. parity     at 64 voices on the card against the CPU, <= 1e-4: a UHJ
+                scene on a 98 MB pool (the span kernel), TSME output with
+                Super Stereo voices, UHJ3 and UHJ4 voices at the FIR256
+                decoder and FIR512 encoder, and UHJ2 and Super Stereo
+                voices at the FIR512 decoder and FIR256 encoder
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits non-zero at
 once when torch.cuda.is_available() is false.
 
-    python3 chip_smoke.py --profile best_case|loaded|speakers_filtered
+    python3 chip_smoke.py --profile best_case|loaded|speakers_filtered|uhj_big_pool
 
 instead builds the kernels and profiles one warm 512-block call of the
 scene at full width with torch.profiler (device time by kernel and by op).
@@ -85,9 +106,19 @@ PARITY_TOL = 1e-5          # best_case: no feedback path
 LOADED_TOL = 1e-4          # loaded: the reverb carries rounding forward
 REVERB_TOL = 1e-6          # reverb kernel vs its plain version
 SPEAKERS_TOL = 1e-4        # filtered scenes with a slot, as LOADED_TOL
+UHJ_TOL = 1e-4             # UHJ scenes: the IIR all-passes feed back
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
-KERNELS = ("resample_unit", "resample_gen", "reverb", "biquad")
+KERNELS = ("resample_unit", "resample_gen", "reverb", "biquad",
+           "resample_span", "resample_voice")
+REPLACES = {
+    "resample_unit": "openal_soft_tpu/ops/pallas/resample_unit.py:284",
+    "resample_gen": "openal_soft_tpu/ops/pallas/resample3.py:113",
+    "reverb": "openal_soft_tpu/ops/pallas/reverb.py:219",
+    "biquad": "openal_soft_tpu/ops/pallas/biquad.py:35",
+    "resample_span": "openal_soft_tpu/ops/pallas/resample2.py:93",
+    "resample_voice": "openal_soft_tpu/ops/pallas/resample.py:62",
+}
 
 
 def emit(obj: dict) -> None:
@@ -360,6 +391,311 @@ def biquad_case(rng, V: int, T: int, counters: str, device):
             T_(cnt, torch.int32))
 
 
+def span_case(rng, V: int, W: int, taps: int, inc_range: tuple, device):
+    """gen_case's voices at increments drawn from ``inc_range`` (16.16,
+    inclusive), with every eighth voice moved to the pool's end: its
+    buffer runs past the last frame, so its window is staged through the
+    address clamp."""
+    import torch
+
+    args = list(gen_case(rng, V, W, taps, 1 << 16, device))
+    P = args[0].numel()
+    off = args[1].cpu().numpy()
+    lens = args[2].cpu().numpy()
+    tail = np.arange(V) % 8 == 7
+    off[tail] = P - rng.integers(1, W + 64, tail.sum())
+    lens[tail] = np.maximum(lens[tail], P - off[tail] + 2 * W)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=device).to(torch.int32)
+    args[1], args[2] = Ti(off), Ti(lens)
+    args[9] = Ti(rng.integers(inc_range[0], inc_range[1] + 1, V))
+    return tuple(args)
+
+
+def check_resample_kernel(cuda, name: str, wrapper, ref, cases) -> float:
+    """Phases 16-17: ``wrapper`` bit-equal to its plain version ``ref``
+    over ``cases`` of (V, W, taps, (lowest, highest increment))."""
+    import torch
+
+    rng = np.random.default_rng(8)
+    max_err = 0.0
+    for V, W, taps, inc_range in cases:
+        args = span_case(rng, V, W, taps, inc_range, cuda)
+        got = wrapper(*args, W, taps)
+        want = ref(*args, W, taps)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        equal = bool(torch.equal(got, want))
+        emit({"phase": "kernel", "name": name, "V": V, "W": W, "taps": taps,
+              "inc_range": list(inc_range), "max_abs_err": err,
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"{name} != plain at W={W} taps={taps} "
+                                 f"inc {inc_range}: max |diff| {err}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def window_bound(V: int, W: int, taps: int, frac: np.ndarray,
+                 inc: np.ndarray, bank_floats: int) -> tuple[float, str]:
+    """A windowed resampler call (K4, K5): each voice's source window read
+    once (the frames from its first output's first tap to its last
+    output's last tap), the output written once, the scalars and the bank
+    slice read once; against ~8 flops per tap."""
+    frac = frac.astype(np.int64)
+    last = (frac + (W - 1) * inc.astype(np.int64)) >> 16
+    frames = int(np.sum(last - (frac >> 16) + taps))
+    return bound(4 * (frames + V * W + V * 12 + bank_floats),
+                 8 * taps * V * W)
+
+
+def uhj_pool_scene(device: str, n_voices: int, n_bufs: int, frames: int,
+                   n_beds: int, n_stems: int, bed_frames: int,
+                   conf: str = "stereo-encoding = uhj\n",
+                   formats: tuple = ("uhj2", "superstereo")):
+    """The uhj_big_pool scene (phase 19) and its small relatives (phase
+    20): ``n_voices`` looping mono voices at pitch 2**U(-1,1) over
+    ``n_bufs`` distinct seeded tones of ``frames`` frames (positions as
+    bench_scene: seed 42, x3.0), ``n_beds`` looping ambience beds in the
+    first of ``formats`` and ``n_stems`` in the second (``bed_frames``
+    frames each, pitch 1; Super Stereo at its default width 0.46), on a
+    stereo device configured by ``conf``; capacity rounded up to a
+    multiple of 128 rows.  Returns (device, pool bytes in use)."""
+    from openal_soft_tpu_torch.alc.device import LoopbackDevice
+
+    rows = {"uhj2": 3, "uhj3": 3, "uhj4": 4, "superstereo": 3}
+    need = n_voices + n_beds * rows[formats[0]] + n_stems * rows[formats[1]]
+    with alsoft_conf(conf):
+        dev = LoopbackDevice(frequency=RATE, channels="stereo",
+                             sample_type="float32",
+                             capacity=-(-need // 128) * 128, hrtf=False,
+                             device=device)
+    ctx = dev.create_context()
+    rng = np.random.default_rng(42)
+    t = np.arange(frames, dtype=np.float64) / RATE
+    bufs = []
+    for i in range(n_bufs):
+        buf = ctx.create_buffer()
+        f0 = 55.0 * 2.0 ** (i / 96.0)
+        buf.set_data((0.1 * np.sin(2 * np.pi * f0 * t + i)).astype(
+            np.float32), "mono", "float32", RATE)
+        bufs.append(buf)
+    for i in range(n_voices):
+        src = ctx.create_source()
+        src.buffer(bufs[i % n_bufs])
+        src.looping = True
+        src.set("position", tuple(rng.standard_normal(3) * 3.0))
+        src.set("pitch", float(2.0 ** rng.uniform(-1, 1)))
+        src.play()
+    tb = np.arange(bed_frames, dtype=np.float64) / RATE
+    for k in range(n_beds + n_stems):
+        fmt = formats[0] if k < n_beds else formats[1]
+        n_ch = 4 if fmt == "uhj4" else 3 if fmt == "uhj3" else 2
+        data = np.stack([(0.1 / (c + 1)) * np.sin(
+            2 * np.pi * 110.0 * (k + 2) * (c + 1) * tb + c)
+            for c in range(n_ch)], axis=1).astype(np.float32)
+        buf = ctx.create_buffer()
+        buf.set_data(data, fmt, "float32", RATE)
+        src = ctx.create_source()
+        src.buffer(buf)
+        src.looping = True
+        src.play()
+    return dev, 4 * (dev.pool._top - 8)
+
+
+# Phase 20: (name, uhj_pool_scene keyword arguments).
+UHJ_PARITY = {
+    "uhj_pool98": {"n_bufs": 64, "frames": 384000, "n_beds": 2,
+                   "n_stems": 2, "bed_frames": 96000},
+    "tsme_ss": {"n_bufs": 16, "frames": 48000, "n_beds": 2, "n_stems": 4,
+                "bed_frames": 48000, "conf": "stereo-encoding = tsme\n",
+                "formats": ("superstereo", "superstereo")},
+    "uhj34_fir256_dec": {"n_bufs": 16, "frames": 48000, "n_beds": 2,
+                         "n_stems": 2, "bed_frames": 48000,
+                         "conf": "stereo-encoding = uhj\n[uhj]\n"
+                                 "decode-filter = fir256\n"
+                                 "encode-filter = fir512\n",
+                         "formats": ("uhj3", "uhj4")},
+    "uhj2_ss_fir512_dec": {"n_bufs": 16, "frames": 48000, "n_beds": 2,
+                           "n_stems": 2, "bed_frames": 48000,
+                           "conf": "stereo-encoding = uhj\n[uhj]\n"
+                                   "decode-filter = fir512\n"
+                                   "encode-filter = fir256\n"},
+}
+
+
+def pool_voices(rng, V: int, n_bufs: int, frames: int, pitch: tuple, device,
+                pool=None):
+    """Resampler inputs for timing: V voices looping over n_bufs distinct
+    buffers of ``frames`` frames each (a pool of n_bufs * frames seeded
+    floats unless ``pool`` is given), at random positions and phases and
+    pitch 2**U(pitch), with the global weight bank."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import tables
+
+    if pool is None:
+        gen = torch.Generator(device=device).manual_seed(5)
+        pool = 0.1 * torch.randn(8 + n_bufs * frames + 4096, device=device,
+                                 generator=gen)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=device).to(torch.int32)
+    lens = np.full(V, frames)
+    bank = {k: torch.tensor(v, device=device)
+            for k, v in tables.weight_bank().items()}
+    return (pool, Ti(8 + (np.arange(V) % n_bufs) * frames), Ti(lens),
+            Ti(np.zeros(V)), Ti(lens),
+            torch.ones(V, dtype=torch.bool, device=device),
+            torch.tensor(rng.random(V) < 0.5, device=device),
+            Ti(rng.integers(0, frames, V)),
+            Ti(rng.integers(0, 1 << 16, V)),
+            Ti(np.floor(2.0 ** rng.uniform(*pitch, V) * 65536)),
+            Ti(np.zeros(V)),
+            torch.tensor(rng.random(V).astype(np.float32), device=device),
+            bank)
+
+
+def phase_timings(cuda, report: dict, smi: str) -> None:
+    """Phase 18: the span (K4), general (K3) and per-voice (K5) resamplers
+    on the same inputs, each held bit-equal to the plain version first.
+    [4096, 16512] (uhj_big_pool's 16-block window with the UHJ look-ahead)
+    on a 268 MB pool at pitch 2**U(-1,1), K4 and K3; at pitch
+    2**U(-1,-0.6), where K5's largest window covers 16512 outputs, all
+    three; and K4 and K3 at the loaded scene's [4096, 16384] on its
+    9.2 MB pool of 48 one-second tones."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
+    from openal_soft_tpu_torch.ops.kernels import resample_voice as rs_voice
+
+    taps = 4
+    fns = {"resample_span": rs_span.resample_span,
+           "resample_gen": rs_gen.resample_gen,
+           "resample_voice": rs_voice.resample_voice}
+    rng = np.random.default_rng(11)
+    big = None
+    tones = torch.tensor(np.concatenate(
+        [np.zeros(8, np.float32), *tone_pool(N_TONES),
+         np.zeros(4096, np.float32)]), device=cuda)
+    cases = (("pool268MB", 16 * BLOCK + 128, (-1.0, 1.0),
+              ("resample_span", "resample_gen")),
+             ("pool268MB", 16 * BLOCK + 128, (-1.0, -0.6),
+              ("resample_span", "resample_gen", "resample_voice")),
+             ("pool9MB", 16 * BLOCK, (-1.0, 1.0),
+              ("resample_span", "resample_gen")))
+    for pool_name, W, pitch, names in cases:
+        if pool_name == "pool268MB":
+            args = pool_voices(rng, N_VOICES, 1024, 65536, pitch, cuda,
+                               pool=big)
+            big = args[0]
+        else:
+            args = pool_voices(rng, N_VOICES, N_TONES, RATE, pitch, cuda,
+                               pool=tones)
+        sl = rs_gen.slice_bank(args[-1], taps)
+        want = rs_gen.resample_gen_ref(*args, W, taps)
+        plain_ms = cuda_ms(lambda: rs_gen.resample_gen_ref(*args, W, taps),
+                           3, 1)
+        frac, inc = args[8].cpu().numpy(), args[9].cpu().numpy()
+        row = {"phase": "timing", "pool": pool_name,
+               "pool_bytes": 4 * args[0].numel(), "V": N_VOICES, "W": W,
+               "taps": taps, "pitch": list(pitch), "plain_ms": plain_ms,
+               "nvidia_smi": smi}
+        for name in names:
+            fn = fns[name]
+            if not torch.equal(fn(*args, W, taps, bank_sl=sl), want):
+                raise AssertionError(f"{name} != plain at the {pool_name} "
+                                     f"timing shape")
+            ms = cuda_ms(lambda: fn(*args, W, taps, bank_sl=sl), 20, 3)
+            if name == "resample_gen":
+                bound_ms, bound_by = resample_bound(
+                    N_VOICES, W, taps, args[0].numel(), 12, sl.numel())
+            else:
+                bound_ms, bound_by = window_bound(N_VOICES, W, taps, frac,
+                                                  inc, sl.numel())
+            row[name] = {"ms": ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "write_GBps": N_VOICES * W * 4 / (ms * 1e-3) / 1e9}
+            main = {"resample_span": pitch == (-1.0, 1.0)
+                    and pool_name == "pool268MB",
+                    "resample_voice": True}.get(name, False)
+            if main:
+                report[name].update(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        emit(row)
+        del args, want
+
+
+def phase_uhj_big_pool(wrappers: dict, report: dict, smi: str) -> None:
+    """Phase 19: uhj_big_pool at full width through the port's entry
+    points, one warm and one timed 512-block call."""
+    import torch
+
+    frames = CHUNK_BLOCKS * BLOCK
+    t0 = time.perf_counter()
+    dev, pool_bytes = uhj_pool_scene("cuda", N_VOICES, 1024, 4 * RATE, 16, 8,
+                                     20 * RATE)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev.render_samples(frames)                       # warm
+    warm_s = time.perf_counter() - t0
+    plan = dev._rs_plan(BLOCK, CHUNK_BLOCKS)
+    for name in KERNELS:
+        wrappers[name].launches = 0
+    t0 = time.perf_counter()
+    out = dev.render_samples(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in KERNELS}
+    for name in ("resample_span", "resample_voice"):
+        report[name]["launches"] = launches[name]   # K5: on no path
+    finite = bool(np.isfinite(out).all())
+    peak = float(np.abs(out).max())
+    emit({"phase": "uhj_big_pool", "voices": N_VOICES, "rows": dev.capacity,
+          "frames": frames, "pool_bytes": pool_bytes,
+          "pool_extent_bytes": dev._pool_extent_bytes,
+          "l2_bytes": dev.l2_bytes, "plan": list(plan),
+          "uhj_pad": dev._uhj_pad(), "setup_s": setup_s, "warm_s": warm_s,
+          "render_s": dt, "x_realtime": (frames / RATE) / dt,
+          "launches": launches, "finite": finite, "peak": peak,
+          "shape": list(out.shape), "nvidia_smi": smi})
+    if out.shape != (frames, 2) or not finite or not peak > 0.0:
+        raise AssertionError("uhj_big_pool output is not finite, nonzero "
+                             f"[{frames}, 2]: shape {out.shape}, "
+                             f"finite {finite}, peak {peak}")
+    if not (launches["resample_span"] > 0 and launches["resample_gen"] == 0
+            and launches["biquad"] > 0 and pool_bytes >= 900e6):
+        raise AssertionError(f"uhj_big_pool: pool {pool_bytes} bytes, "
+                             f"launches {launches}")
+
+
+def phase_uhj_parity(wrappers: dict) -> None:
+    """Phase 20: the UHJ scenes at 64 voices on the card against the
+    port on the CPU."""
+    for name, kw in UHJ_PARITY.items():
+        g, _ = uhj_pool_scene("cuda", 64, **kw)
+        c, pool_bytes = uhj_pool_scene("cpu", 64, **kw)
+        before = {k: wrappers[k].launches for k in KERNELS}
+        for n, path in ((8192, "multi-block"), (4096, "per-block"),
+                        (100, "odd"), (924, "odd")):
+            a, b = g.render_samples(n), c.render_samples(n)
+            err = float(np.abs(a - b).max())
+            emit({"phase": "parity", "scene": name, "frames": n,
+                  "path": path, "pool_bytes": pool_bytes,
+                  "plan": list(g._rs_plan(BLOCK, 8)),
+                  "max_abs_err": err, "tol": UHJ_TOL,
+                  "peak": float(np.abs(b).max())})
+            if not (np.isfinite(a).all() and err <= UHJ_TOL
+                    and np.abs(b).max() > 1e-3):
+                raise AssertionError(f"{name} GPU vs CPU port at {n} "
+                                     f"frames: {err}")
+        grew = {k: wrappers[k].launches - before[k] for k in KERNELS}
+        need = ["resample_span" if name == "uhj_pool98" else "resample_gen"]
+        if "fir" not in name:             # the IIR tier's all-passes
+            need.append("biquad")
+        if not all(grew[k] > 0 for k in need):
+            raise AssertionError(f"{name} skipped a kernel: {grew}")
+
+
+
 def cuda_ms(fn, iters: int, warmup: int) -> float:
     import torch
 
@@ -590,7 +926,7 @@ def reverb_bound(eff, W: int) -> tuple[float, str]:
 
 
 def profile(scene: str, smi: str) -> None:
-    """``--profile best_case|loaded``: the scene at full width, one warm
+    """``--profile <scene>``: the scene at full width, one warm
     512-block call, then torch.profiler over one more.  Prints the device
     time by kernel and by aten op and input shape."""
     import torch
@@ -601,6 +937,9 @@ def profile(scene: str, smi: str) -> None:
     if scene == "speakers_filtered":
         dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True,
                           filtered=True, hrtf=False)
+    elif scene == "uhj_big_pool":
+        dev, _ = uhj_pool_scene("cuda", N_VOICES, 1024, 4 * RATE, 16, 8,
+                                20 * RATE)
     else:
         dev = bench_scene(N_VOICES, N_VOICES, "cuda",
                           loaded=scene == "loaded")
@@ -655,7 +994,9 @@ def main() -> int:
         return 0
     from openal_soft_tpu_torch.ops.kernels import biquad as biq
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
     from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
+    from openal_soft_tpu_torch.ops.kernels import resample_voice as rs_voice
     from openal_soft_tpu_torch.ops.kernels import reverb as rev_k
 
     cuda = torch.device("cuda", 0)
@@ -664,15 +1005,12 @@ def main() -> int:
                 "resample_gen": rs_gen.resample_gen,
                 "reverb": rev_k.reverb_pipeline,
                 "biquad": biq.biquad_dual}
+    wrappers["resample_span"] = rs_span.resample_span
+    wrappers["resample_voice"] = rs_voice.resample_voice
     report = {name: {"name": name, "route": "cuda",
                      "source": f"openal_soft_tpu_torch/csrc/{name}.cu",
-                     "library_ms": None} for name in KERNELS}
-    report["resample_unit"]["replaces"] = \
-        "openal_soft_tpu/ops/pallas/resample_unit.py:284"
-    report["resample_gen"]["replaces"] = \
-        "openal_soft_tpu/ops/pallas/resample3.py:113"
-    report["reverb"]["replaces"] = "openal_soft_tpu/ops/pallas/reverb.py:219"
-    report["biquad"]["replaces"] = "openal_soft_tpu/ops/pallas/biquad.py:35"
+                     "replaces": REPLACES[name], "library_ms": None}
+              for name in KERNELS}
 
     # 1. environment
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -954,6 +1292,27 @@ def main() -> int:
                                      f"frames: {err}")
         if biq.biquad_dual.launches <= before:
             raise AssertionError(f"{name} never launched biquad")
+
+    # 16-17. the span and per-voice resamplers against their plain versions
+    one = 1 << 16
+    report["resample_span"]["max_abs_err"] = check_resample_kernel(
+        cuda, "resample_span", rs_span.resample_span,
+        rs_span.resample_span_ref,
+        [(256, W, taps, (one // 4, 10 * one)) for taps in (1, 2, 4, 24, 48)
+         for W in (128, 1024, 1152, 16512, 16640)])
+    report["resample_voice"]["max_abs_err"] = check_resample_kernel(
+        cuda, "resample_voice", rs_voice.resample_voice,
+        rs_voice.resample_voice_ref,
+        [(256, W, taps, incs) for taps in (1, 4, 48)
+         for W, incs in ((128, (one // 4, 10 * one)),
+                         (1024, (one // 4, 10 * one)),
+                         (1152, (one // 4, 9 * one)),
+                         (16512, (one // 4, 42000)))])
+    phase_timings(cuda, report, smi)
+
+    # 19-20. uhj_big_pool at full width, then the UHJ parity scenes
+    phase_uhj_big_pool(wrappers, report, smi)
+    phase_uhj_parity(wrappers)
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

@@ -4,24 +4,31 @@ The whole voice population lives in one structure-of-arrays param table
 (host numpy), and each dispatch renders ``n_blocks`` blocks for every voice
 at once on the chosen torch device:
 
-    resample (unit or general kernel) -> [direct filter (biquad kernel)]
+    resample (unit, general or span kernel) [-> UHJ/Super Stereo decode]
+    -> [direct filter (biquad kernel)]
     -> dry ambisonic bus [through the NFC filters]
     [-> send filters (biquad kernel) -> wet-send mixes -> effect slots]
     -> HRTF: HRIR contraction (matmul) [+ HF scale -> baked binaural
        decode] -> skew-sum -> accumulator fold
     -> speakers: [band split] -> decode matrices [-> front stabilizer]
+       or the UHJ/TSME stereo encode
     -> [n_blocks, n_real, T] output
 
 The ported path is binaural HRTF output (per-voice HRIRs, "full" mode, or
 the ``ambiN`` modes), speaker output (pairwise stereo, the built-in and
-custom ambdec decoders, single- or dual-band) and Ambi3D output; native-rate
-or pitched voices, B-Format voices on the dry bus, direct and send filters,
+custom ambdec decoders, single- or dual-band), UHJ and TSME stereo output
+and Ambi3D output; native-rate or pitched voices, B-Format voices on the
+dry bus, UHJ2/3/4 and Super Stereo voices (decoded at every quality tier,
+their all-passes through the biquad kernel), direct and send filters,
 near-field compensation, and effect slots that write the dry bus.
-Multi-block dispatches of unfiltered HRTF scenes take the fused super-block
-branch (one resample + one contraction per 2..16 blocks, the effects at the
-whole window where their rings allow); other multi-block dispatches resample
-once per super-block and render each block on its slice; single blocks take
-the per-block branch.  UHJ/TSME output, UHJ/Super Stereo voices and effects
+The resampler follows the pool: the general kernel reads taps straight
+from a pool that fits L2, the span kernel stages each tile's window from
+one that does not (``_rs_plan``).  Multi-block dispatches of unfiltered
+HRTF scenes without UHJ voices take the fused super-block branch (one
+resample + one contraction per 2..16 blocks, the effects at the whole
+window where their rings allow); other multi-block dispatches resample
+once per super-block and render each block on its slice (with the UHJ
+decoders' look-ahead); single blocks take the per-block branch.  Effects
 that write the real output raise NotImplementedError naming their ROADMAP
 item; on the card nothing falls back to the CPU.
 
@@ -44,7 +51,6 @@ from ..constants import (
     GAIN_FADE_SAMPLES,
     MAX_AMBI_CHANNELS,
     MIXER_FRAC_BITS,
-    MIXER_FRAC_MASK,
 )
 from ..core import context as cparams
 from ..core import hrtf as hrtf_mod
@@ -60,13 +66,20 @@ from ..ops import hrtf_mix
 from ..ops import mix as mix_ops
 from ..ops import nfc as nfc_ops
 from ..ops import resample as rs_ops
+from ..ops import uhj as uhj_ops
 from ..ops.kernels import biquad as biq
 from ..ops.kernels import resample_gen as rs_gen
+from ..ops.kernels import resample_span as rs_span
 from ..ops.kernels import resample_unit as rs_unit
 
 f32 = np.float32
-_UHJ_FORMATS = (FmtChannels.UHJ2, FmtChannels.UHJ3, FmtChannels.UHJ4,
-                FmtChannels.SUPER_STEREO)
+# UHJ voice kinds: (state key, decoded channels, buffer channels).
+_UHJ_KINDS = {FmtChannels.UHJ2: ("u2", 3, 2), FmtChannels.UHJ3: ("u3", 3, 3),
+              FmtChannels.UHJ4: ("u4", 4, 4),
+              FmtChannels.SUPER_STEREO: ("ss", 3, 2)}
+# The UHJ2 quad decode's LF shelving (sWLFScale, sXYLFScale).
+_UHJ2_LF = (0.661, 1.293, 1.293)
+L2_BYTES_CPU = 50 << 20   # the span plan's threshold on the CPU (an H100's L2)
 
 
 def _to_dev(a, device: torch.device) -> torch.Tensor:
@@ -452,6 +465,30 @@ class RenderDevice:
         self.pool = BufferPool()
         self.table = ParamTable(capacity, self.n_dry, num_aux_sends,
                                 MAX_AMBI_CHANNELS)
+        # UHJ/TSME codec quality tiers (uhj/decode-filter etc.,
+        # alc/alc.cpp:548-585): iir (default), fir256 or fir512.
+        def _quality(block: str, key: str) -> str:
+            v = (alconf.config_value_str(block, key) or "iir").lower()
+            return v if v in ("iir", "fir256", "fir512") else "iir"
+        self._uhj_dec_q = _quality("uhj", "decode-filter")
+        self._tsme_dec_q = _quality("tsme", "decode-filter")
+        self._uhj_enc_q = _quality("uhj", "encode-filter")
+        self._tsme_enc_q = _quality("tsme", "encode-filter")
+        self._uhj_enc = None
+        self._tsme_enc = None
+        # UHJ voices by kind; their decode state lives in _state.
+        self._uhj_groups: dict = {"u2": [], "u3": [], "u4": [], "ss": []}
+        self._uhj_adopt = False   # a restored snapshot's decode state
+        self._uhj_splitter = f_ops.BandSplitterKernels(
+            float(f_ops.band_splitter_coeff(self.layout.xover_f0norm)))
+        # The span plan's threshold: the card's L2 (a fixed 50 MiB on the
+        # CPU; tests may lower it), against the union of the active voices'
+        # buffer extents, measured at each config upload.
+        self.l2_bytes = (
+            torch.cuda.get_device_properties(self.torch_device).L2_cache_size
+            if self.torch_device.type == "cuda" else L2_BYTES_CPU)
+        self._pool_extent_bytes = 0
+        self._max_inc = 1 << MIXER_FRAC_BITS
         # Cross-thread protocol: the render thread and app threads
         # serialize on this lock (the mutex analog of the reference's
         # wait-free prop-swap discipline, alu.cpp:2009-2013).
@@ -464,7 +501,6 @@ class RenderDevice:
         self._ev_dev = None   # device-evolved copy of the _EVOLVING fields
         self._ev_fade = False  # host mirror of bool(_ev_dev["fade"].any())
         self._cfg_has_resets = False
-        self._has_uhj_voices = False
         self._pending_resets: set[int] = set()
         self.contexts: list = []
         # Effect slots: aluInitEffectPanning gives each slot a full-order
@@ -625,6 +661,23 @@ class RenderDevice:
             state["split_state"] = z(self.n_dry, 3)
         if self.nfc is not None:
             state["nfc_z"] = z(L, nfc_ops.NUM_STATES)
+        dev = self.torch_device
+        if self.layout.uhj_output:
+            if self._uhj_enc_q == "iir":
+                state.update(uhj_ops.uhj_encoder_iir_state(dev))
+            else:
+                self._uhj_enc = uhj_ops.UhjEncoderState(
+                    512 if self._uhj_enc_q == "fir512" else 256)
+                state.update({f"uhjenc_{k}": v
+                              for k, v in self._uhj_enc.init(dev).items()})
+        if self.layout.tsme_output:
+            if self._tsme_enc_q == "iir":
+                state.update(uhj_ops.tsme_encoder_iir_state(dev))
+            else:
+                self._tsme_enc = uhj_ops.TsmeEncoderState(
+                    512 if self._tsme_enc_q == "fir512" else 256)
+                state.update({f"tsmeenc_{k}": v
+                              for k, v in self._tsme_enc.init(dev).items()})
         if self._stab is not None:
             state["stab_mid"] = z(1, 3)
             state["stab_ap"] = z(self.n_real)
@@ -634,32 +687,57 @@ class RenderDevice:
             state["direct_split"] = z(self.n_dry, 3)
         return state
 
-    # --- what this slice renders ---
-
-    def _check_ported(self) -> None:
-        """Raise for a scene outside the ported path, naming its item."""
-        if self.layout.uhj_output or self.layout.tsme_output:
-            raise NotImplementedError("UHJ/TSME output: ROADMAP A11b")
-        if self._has_uhj_voices:
-            raise NotImplementedError("UHJ/Super Stereo voices: ROADMAP A11b")
+    # --- the resampler plan ---
 
     # Largest blocks per resample call (the JAX package's super-block
-    # ladder); bounded here only by the int32 position math.
+    # ladder).  Positions are taken in 64 bits, so nothing else bounds it.
     _RS_SUPER_BLOCKS = (16, 8, 4, 2)
+
+    def _pool_extent(self) -> int:
+        """Bytes of the union of the active voices' buffer extents,
+        merged in 128-frame rows as the JAX package's shared_layout merges
+        them (each extent reaching past its loop end by the taps)."""
+        t = self.table
+        act = t.active
+        off = t.src_off[act].astype(np.int64)
+        end = (off + np.maximum(t.src_len[act], t.loop_end[act])
+               + self._taps + 1)
+        rows = 0
+        hi_row = -1
+        for lo, hi in sorted(set(zip((off >> 7).tolist(),
+                                     (-(-end // 128)).tolist()))):
+            if lo > hi_row:
+                rows += hi - lo
+                hi_row = hi
+            elif hi > hi_row:
+                rows += hi - hi_row
+                hi_row = hi
+        return rows * 128 * 4
 
     def _rs_plan(self, T: int, n_blocks: int) -> tuple[str, int]:
         """(kind, sb): ``"unit"`` when every active increment is exactly
-        1<<16 (the unit kernel), else ``"gen"`` (the general kernel); sb
-        blocks share one resample and one HRTF contraction."""
-        inc = self.table.increment[self.table.active]
-        kind = ("unit" if bool(np.all(inc == 1 << MIXER_FRAC_BITS))
-                else "gen")
-        max_inc = int(inc.max()) if inc.size else 1 << MIXER_FRAC_BITS
-        for sb in self._RS_SUPER_BLOCKS:
-            if (n_blocks % sb == 0
-                    and (sb * T - 1) * max_inc + MIXER_FRAC_MASK < 1 << 31):
-                return kind, sb
-        return kind, 1
+        1<<16 (the unit kernel); else ``"span"`` (the span kernel) when
+        the active voices' buffers outgrow L2 and every looping voice's
+        loop covers a span tile's window, as the JAX package's plan takes
+        its per-voice-DMA kernel when the buffers outgrow the VMEM image
+        (core/device.py:1898-1941); else ``"gen"`` (the general kernel,
+        exact for any loop length).  sb blocks share one resample (and,
+        on the fused branch, one HRTF contraction)."""
+        t = self.table
+        act = t.active
+        # The span kernel sizes its window for every row it resamples.
+        self._max_inc = int(t.increment.max())
+        if bool(np.all(t.increment[act] == 1 << MIXER_FRAC_BITS)):
+            kind = "unit"
+        elif self._pool_extent_bytes > self.l2_bytes:
+            loops = t.has_loop & act
+            win = rs_span.window_frames(self._max_inc, self._taps)
+            kind = ("span" if bool(np.all(
+                t.loop_end[loops] - t.loop_start[loops] >= win)) else "gen")
+        else:
+            kind = "gen"
+        sb = next((s for s in self._RS_SUPER_BLOCKS if n_blocks % s == 0), 1)
+        return kind, sb
 
     # --- the block path ---
 
@@ -675,12 +753,14 @@ class RenderDevice:
         if self._bank_sl is None or self._bank_sl[0] != self._taps:
             self._bank_sl = (self._taps,
                              rs_gen.slice_bank(self._bank_dev, self._taps))
-        return rs_gen.resample_gen(
-            pool, cfg["src_off"], cfg["src_len"], cfg["loop_start"],
-            cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
-            ev["pos_int"], ev["pos_frac"], cfg["increment"],
-            cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps,
-            bank_sl=self._bank_sl[1])
+        args = (pool, cfg["src_off"], cfg["src_len"], cfg["loop_start"],
+                cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
+                ev["pos_int"], ev["pos_frac"], cfg["increment"],
+                cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps)
+        if kind == "span":
+            return rs_span.resample_span(*args, bank_sl=self._bank_sl[1],
+                                         max_inc=self._max_inc)
+        return rs_gen.resample_gen(*args, bank_sl=self._bank_sl[1])
 
     @staticmethod
     def _filter(x, z, cf, tgt, cnt, fa):
@@ -814,6 +894,8 @@ class RenderDevice:
         dec_hf @ dry, or for Ambi3D output the bus itself; then the front
         stabilizer.  The products are float32 matmuls at full precision
         (TF32 is off, see _device.resolve_device)."""
+        if self.layout.uhj_output or self.layout.tsme_output:
+            return self._stereo_encode(state, dry)
         if self._dec_lf is not None:
             hp, lp, sp2 = self._splitter.split(dry, state["split_state"])
             state["split_state"].copy_(sp2)
@@ -857,6 +939,177 @@ class RenderDevice:
         ap_out[ci] = ap_out[ci] + c * 0.5
         return ap_out
 
+    def _stereo_encode(self, state: dict, dry):
+        """UhjPostProcess / TsmePostProcess (alu.cpp:300): the first-order
+        dry bus (UHJ: FuMa2D W, X, Y; TSME: ACN W, Y, Z, X) encoded to
+        stereo [2, T] by the IIR tier or the FIR tier that the
+        uhj/encode-filter or tsme/encode-filter key selects."""
+        T = dry.shape[1]
+        if self.layout.uhj_output:
+            if self._uhj_enc is not None:
+                est = {"wxy": state["uhjenc_wxy"],
+                       "jwx_hist": state["uhjenc_jwx_hist"]}
+                est2, left, right = self._uhj_enc.encode(
+                    est, dry[0], dry[1], dry[2], T)
+                state.update({f"uhjenc_{k}": v for k, v in est2.items()})
+            else:
+                left, right, enc2 = uhj_ops.uhj_encode_iir(
+                    dry[0], dry[1], dry[2], state, T)
+                state.update(enc2)
+        elif self._tsme_enc is not None:
+            est = {"wyzx": state["tsmeenc_wyzx"],
+                   "jwx_hist": state["tsmeenc_jwx_hist"]}
+            est2, left, right = self._tsme_enc.encode(
+                est, dry[0], dry[1], dry[2], dry[3], T)
+            state.update({f"tsmeenc_{k}": v for k, v in est2.items()})
+        else:
+            left, right, enc2 = uhj_ops.tsme_encode_iir(
+                dry[0], dry[1], dry[2], dry[3], state, T)
+            state.update(enc2)
+        return torch.stack([left, right])
+
+    # --- UHJ and Super Stereo voices ---
+
+    def _uhj_tier(self, kind: str) -> str:
+        """Decode quality for a voice kind: Super Stereo voices use the
+        TSME decoder's key when the device output is TSME
+        (core/voice.cpp:1232), the UHJ key otherwise."""
+        if kind == "ss" and self.layout.tsme_output:
+            return self._tsme_dec_q
+        return self._uhj_dec_q
+
+    def _uhj_pad(self) -> int:
+        """Resample look-ahead of the active decode tiers (the decoder
+        input padding, uhjfilter.h:111, rounded to the 128-sample grain)."""
+        return max((256 if self._uhj_tier(k) == "fir512" else 128
+                    for k, voices in self._uhj_groups.items() if voices),
+                   default=0)
+
+    def _uhj_state_spec(self, kind: str) -> list:
+        """(field, per-voice shape) of the kind's decode state."""
+        if self._uhj_tier(kind) == "iir":
+            fields = ["f2dt", "f1s", "f1dt", "f2s"] + (
+                ["f1q"] if kind == "u4" else [])
+            return [(f, (4, 2)) for f in fields]
+        h = uhj_ops.fir_hist(512 if self._uhj_tier(kind) == "fir512"
+                             else 256)
+        return [("dt_hist", (h,)), ("s_hist", (h,))]
+
+    def _uhj_decode(self, state: dict, cfg: dict, x, T: int):
+        """UHJ / Super Stereo source decode (core/voice.cpp:989-995): x
+        [L, T + pad] -> [L, T].  Each kind's L/R(/T/Q) rows are gathered,
+        decoded batched at the kind's tier, the UHJ2 rows LF-shelved
+        (Voice::prepare, core/voice.cpp:1288-1317), and written back over
+        their rows as W/X/Y(/Z).  The JAX package gathers and scatters
+        with one-hot products, which select the same values exactly."""
+        if not any(self._uhj_groups.values()):
+            return x[:, :T] if x.shape[1] != T else x
+        x_out = x[:, :T].clone()
+        for fmt_kind, C, n_in in _UHJ_KINDS.values():
+            n = len(self._uhj_groups[fmt_kind])
+            if not n:
+                continue
+            rows = cfg[f"uhj_rows_{fmt_kind}"]
+            chans = x.index_select(0, rows).reshape(n, C, x.shape[1])
+            tier = self._uhj_tier(fmt_kind)
+            fields = [f for f, _ in self._uhj_state_spec(fmt_kind)]
+            st = {f: state[f"uhj_{fmt_kind}_{f}"] for f in fields}
+            # TSME output devices decode Super Stereo with the reversed
+            # phase-shift convention (core/voice.cpp:1232-1251).
+            jsgn = -1.0 if (fmt_kind == "ss"
+                            and self.layout.tsme_output) else 1.0
+            if tier == "iir":
+                if fmt_kind == "ss":
+                    dec, st2 = uhj_ops.super_stereo_decode_iir(
+                        chans, st, cfg["uhj_width"], T, j_sign=jsgn)
+                else:
+                    dec, st2 = uhj_ops.uhj_decode_iir(chans, st, T, n_in)
+            else:
+                nfir = 512 if tier == "fir512" else 256
+                ch = chans[:, :, :T + uhj_ops.fir_pad(nfir)]
+                if fmt_kind == "ss":
+                    dec, dh, sh = uhj_ops.super_stereo_decode(
+                        ch, st["dt_hist"], st["s_hist"], cfg["uhj_width"],
+                        T, nfir, j_sign=jsgn)
+                else:
+                    dec, dh, sh = uhj_ops.uhj_decode(
+                        ch, st["dt_hist"], st["s_hist"], T, n_in, nfir)
+                st2 = {"dt_hist": dh, "s_hist": sh}
+            for f in fields:
+                state[f"uhj_{fmt_kind}_{f}"] = st2[f]
+            dec = dec.reshape(n * C, T)
+            if fmt_kind == "u2":
+                # Only FmtUHJ2 gets the quad-decode LF shelving
+                # (sWLFScale/sXYLFScale); Super Stereo does not.
+                dec, state["uhj_split"] = self._uhj_splitter.scale(
+                    dec, state["uhj_split"], 1.0, cfg["uhj_lf"])
+            x_out.index_copy_(0, rows, dec)
+        return x_out
+
+    def _refresh_uhj_groups(self) -> None:
+        """Rebuild the UHJ voice groups, carrying each voice's decode
+        state over by identity (a new voice starts from zeros).  After a
+        restore the state already holds the groups in voice order."""
+        groups = {"u2": [], "u3": [], "u4": [], "ss": []}
+        for ctx in self.contexts:
+            for v in ctx.voices:
+                spec = _UHJ_KINDS.get(v.fmt_channels)
+                if spec and v.rows and v.state in (PlayState.PLAYING,
+                                                   PlayState.STOPPING):
+                    groups[spec[0]].append(v)
+        old = groups if self._uhj_adopt else self._uhj_groups
+        self._uhj_adopt = False
+        if old is not groups and all(
+                [id(v) for v in old[k]] == [id(v) for v in groups[k]]
+                for k in groups):
+            return
+        st = self._state
+        for k, voices in groups.items():
+            for f, shape in self._uhj_state_spec(k):
+                name = f"uhj_{k}_{f}"
+                self._remap(name, voices, old[k], shape)
+        self._remap("uhj_split", groups["u2"], old["u2"], (3, 3))
+        if "uhj_split" in st:
+            st["uhj_split"] = st["uhj_split"].reshape(-1, 3)
+        self._uhj_groups = groups
+
+    def _remap(self, name: str, voices: list, old: list, shape: tuple):
+        """state[name] for ``voices`` ([n, *shape]; for uhj_split rows of
+        three per voice, [3n, 3]) from its rows for ``old``; absent when
+        ``voices`` is empty."""
+        st = self._state
+        prev = st.pop(name, None)
+        if not voices:
+            return
+        arr = torch.zeros((len(voices),) + shape, dtype=torch.float32,
+                          device=self.torch_device)
+        if prev is not None:
+            prev = prev.reshape((-1,) + shape)
+            for i, v in enumerate(voices):
+                j = next((j for j, o in enumerate(old) if o is v), None)
+                if j is not None and j < prev.shape[0]:
+                    arr[i] = prev[j]
+        st[name] = arr
+
+    def _uhj_cfg(self, cfg: dict) -> None:
+        """The UHJ groups' rows (decoded channel order), the Super Stereo
+        widths and the UHJ2 LF shelf gains, on the device."""
+        dev = self.torch_device
+        for fmt_kind, C, _ in _UHJ_KINDS.values():
+            voices = self._uhj_groups[fmt_kind]
+            if voices:
+                cfg[f"uhj_rows_{fmt_kind}"] = torch.tensor(
+                    [r for v in voices for r in v.rows[:C]],
+                    dtype=torch.int64, device=dev)
+        if self._uhj_groups["ss"]:
+            cfg["uhj_width"] = _to_dev(np.array(
+                [min(v.props.enh_width, 0.7) for v in self._uhj_groups["ss"]],
+                f32), dev)
+        if self._uhj_groups["u2"]:
+            cfg["uhj_lf"] = _to_dev(np.tile(np.array(_UHJ2_LF, f32),
+                                            len(self._uhj_groups["u2"])
+                                            )[:, None], dev)
+
     @staticmethod
     def _advance(cfg: dict, ev: dict, n: int) -> None:
         """End-of-window evolution, in place: positions advance and looping
@@ -882,9 +1135,10 @@ class RenderDevice:
         place.  ``x_pre`` is this block's slice of a super-block resample;
         without it the block resamples itself."""
         fade_len = min(GAIN_FADE_SAMPLES, T)
-        x = (self._resample(pool, cfg, ev, T, kind) if x_pre is None
-             else x_pre)
+        x = (self._resample(pool, cfg, ev, T + self._uhj_pad(), kind)
+             if x_pre is None else x_pre)
         x = torch.where(cfg["active"][:, None], x, 0.0)
+        x = self._uhj_decode(state, cfg, x, T)
         x_mix = self._direct_filter(state, ev, cfg, x, gates)
         dry = self._dry_bus(state, ev, cfg, x_mix, fade_len,
                             "gate:nodry" in gates)
@@ -955,7 +1209,7 @@ class RenderDevice:
         return ("gate:nofilt" in gates
                 and (not self.slots or "gate:nosendfilt" in gates)
                 and self.layout.mode == panning.RenderMode.HRTF
-                and self.nfc is None)
+                and self.nfc is None and self._uhj_pad() == 0)
 
     def _render_chunk(self, state: dict, ev: dict, cfg: dict, pool, T: int,
                       n_blocks: int, plan: tuple[str, int], resets,
@@ -982,14 +1236,16 @@ class RenderDevice:
                                              kind, any_fade and i == 0, gates)
                 out[i * sb:(i + 1) * sb] = o.reshape(2, sb, T).transpose(0, 1)
         elif sb > 1:
-            # One resample per super-block; each block renders its slice.
+            # One resample per super-block; each block renders its slice,
+            # with the UHJ decoders' look-ahead (pad) past its end.
+            pad = self._uhj_pad()
             for i in range(n_blocks // sb):
-                x_all = self._resample(pool, cfg, ev, sb * T, kind)
+                x_all = self._resample(pool, cfg, ev, sb * T + pad, kind)
                 for b in range(sb):
                     out[i * sb + b] = self._render_one(
                         state, ev, cfg, pool, T, kind,
                         any_fade and i == 0 and b == 0, gates,
-                        x_pre=x_all[:, b * T:(b + 1) * T])
+                        x_pre=x_all[:, b * T:(b + 1) * T + pad])
         else:
             for b in range(n_blocks):
                 out[b] = self._render_one(state, ev, cfg, pool, T, kind,
@@ -1047,11 +1303,9 @@ class RenderDevice:
                 if not ctx._packed_this_update:
                     ctx._pack_block_fields(BUFFER_LINE_SIZE)
                     ctx._packed_this_update = True
-            self._has_uhj_voices = any(
-                v.fmt_channels in _UHJ_FORMATS and v.rows
-                and v.state in (PlayState.PLAYING, PlayState.STOPPING)
-                for ctx in self.contexts for v in ctx.voices)
+            self._refresh_uhj_groups()
             cfg = self._cfg_from_table()
+            self._uhj_cfg(cfg)
             mask = self._pending_resets_mask()
             self._cfg_has_resets = bool(mask.any())   # host-known
             cfg["reset_rows"] = _to_dev(mask, self.torch_device)
@@ -1071,7 +1325,6 @@ class RenderDevice:
             ev, any_fade = self._ev_dev, self._ev_fade
 
         gates = self._graph_gates()
-        self._check_ported()
         resets = (self._cfg_dev["reset_rows"] if self._cfg_has_resets
                   else None)
         blocks = self._render_chunk(
@@ -1108,6 +1361,7 @@ class RenderDevice:
         t = self.table
         cfg["rs_unit_w"] = _to_dev(rs_unit.unit_weights_np(
             self._bank, t.bank_row, t.sf, t.pos_frac, self._taps), dev)
+        self._pool_extent_bytes = self._pool_extent()
         if self.nfc is not None:
             cfg["nfc_coeffs"] = _to_dev(np.where(
                 (t.nfc_w0 < 0.0)[:, None], self.nfc.identity_coeffs(1),
@@ -1146,6 +1400,7 @@ class RenderDevice:
             self._carry = (None if snap["carry"] is None
                            else np.array(snap["carry"], f32))
             self._clock_samples = int(snap["clock"])
+            self._uhj_adopt = True
             self._cfg_dev = None
 
     def clock_ns(self) -> int:

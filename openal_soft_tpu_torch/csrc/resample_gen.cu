@@ -7,7 +7,7 @@
 // memory, as in csrc/resample_unit.cu.  It computes
 // ops/resample.py `resample_voices` at any increment, for every tier:
 //
-//   total = pos_frac + t*inc,  pos = pos_int + (total >> 16)
+//   total = pos_frac + t*inc (64-bit),  pos = pos_int + (total >> 16)
 //   phase = (total & 0xffff) >> 11,  pf = (total & 2047) / 2048
 //   w_j   = (fil + sf*scd) + pf*(phd + sf*spd)   rows [bank_row, phase, j]
 //   out[v, t] = sum_{j < taps} w_j * src_v(resolve(pos + j - center))
@@ -61,9 +61,9 @@ resample_gen_kernel(const float* __restrict__ pool, long long pool_len,
   const int le = m[3];
   const bool has_loop = m[4] != 0;
   const bool has_wrapped = m[5] != 0;
-  const int total = m[7] + t * m[8];   // the plan keeps this below 2^31
-  const int pos = m[6] + (total >> 16);
-  const int fr = total & 0xFFFF;
+  const long long total = m[7] + static_cast<long long>(t) * m[8];
+  const int pos = m[6] + static_cast<int>(total >> 16);
+  const int fr = static_cast<int>(total & 0xFFFF);
   const float pf = __fmul_rn(static_cast<float>(fr & 2047), 1.0f / 2048.0f);
   const float s = sf[v];
   const long long plane = static_cast<long long>(kRows) * kPhases * taps;

@@ -60,9 +60,8 @@ def resample_gen(pool, src_off, src_len, loop_start, loop_end, has_loop,
     """Resample V voices at any pitch: [V, n] f32.
 
     Arguments as ``ops/resample.resample_voices``; on the card ``bank_sl``
-    may pass ``slice_bank(bank, taps)`` prepared once.  The caller keeps
-    ``(n - 1) * max(increment) + 65535 < 2**31`` (the per-sample position
-    math is int32, as in the plain version)."""
+    may pass ``slice_bank(bank, taps)`` prepared once.  Positions are
+    taken in 64 bits, as in the plain version."""
     if pool.device.type == "cpu":
         return resample_gen_ref(pool, src_off, src_len, loop_start, loop_end,
                                 has_loop, has_wrapped, pos_int, pos_frac,

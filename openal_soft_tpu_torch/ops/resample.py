@@ -42,10 +42,14 @@ def positions(pos_frac: torch.Tensor, increment: torch.Tensor, n: int):
       increment: [V] int32 16.16 step.
     Returns:
       (pos [V,n] int32 relative integer positions, fr [V,n] int32 fractions).
+    The products are taken in 64 bits, so windows whose last ``i*increment``
+    passes 2**31 (a 16-block UHJ-padded window at 2x pitch) stay exact; the
+    JAX package's int32 form agrees wherever it does not overflow.
     """
-    i = torch.arange(n, dtype=torch.int32, device=pos_frac.device)
-    total = pos_frac[:, None] + i[None, :] * increment[:, None]
-    return total >> MIXER_FRAC_BITS, total & MIXER_FRAC_MASK
+    i = torch.arange(n, dtype=torch.int64, device=pos_frac.device)
+    total = pos_frac.long()[:, None] + i[None, :] * increment.long()[:, None]
+    return ((total >> MIXER_FRAC_BITS).to(torch.int32),
+            (total & MIXER_FRAC_MASK).to(torch.int32))
 
 
 def resolve_source_index(s: torch.Tensor, loop_start: torch.Tensor,
@@ -131,6 +135,9 @@ def resample_voices(pool: torch.Tensor, src_off: torch.Tensor,
 
 def advance_positions(pos_int: torch.Tensor, pos_frac: torch.Tensor,
                       increment: torch.Tensor, samples_mixed: int):
-    """End-of-block position update (voice.cpp:1086-1089), pre loop wrap."""
-    total = pos_frac + increment * samples_mixed
-    return pos_int + (total >> MIXER_FRAC_BITS), total & MIXER_FRAC_MASK
+    """End-of-block position update (voice.cpp:1086-1089), pre loop wrap.
+    The step is taken in 64 bits, as the host mirror's Python integers
+    take it, so a 16-block window at 2x pitch does not wrap."""
+    total = pos_frac.long() + increment.long() * samples_mixed
+    return (pos_int + (total >> MIXER_FRAC_BITS).to(torch.int32),
+            (total & MIXER_FRAC_MASK).to(torch.int32))

@@ -15,7 +15,9 @@ import torch
 import chip_smoke
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
 from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
+from openal_soft_tpu_torch.ops.kernels import resample_span as t_span
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
+from openal_soft_tpu_torch.ops.kernels import resample_voice as t_voice
 from openal_soft_tpu_torch.ops.kernels import reverb as t_rev
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +121,57 @@ def test_filtered_scene_on_the_card_matches_the_cpu(cuda, scene):
         assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
             <= chip_smoke.SPEAKERS_TOL
     assert t_biq.biquad_dual.launches > before
+
+
+ONE = 1 << 16
+
+
+@pytest.mark.parametrize("taps", [1, 4, 48])
+@pytest.mark.parametrize("W", [128, 1152, 16512])
+def test_span_kernel_equals_plain_version(cuda, taps, W):
+    """K4 at 0.25x-10x, with the branch cases and windows at the pool's
+    end, including a partial last tile."""
+    args = chip_smoke.span_case(np.random.default_rng(taps * W), 256, W,
+                                taps, (ONE // 4, 10 * ONE), cuda)
+    before = t_span.resample_span.launches
+    got = t_span.resample_span(*args, W, taps)
+    torch.cuda.synchronize()
+    assert t_span.resample_span.launches == before + 1
+    assert torch.equal(got, t_span.resample_span_ref(*args, W, taps))
+
+
+@pytest.mark.parametrize("taps", [1, 4, 48])
+@pytest.mark.parametrize("W,top", [(1024, 10 * ONE), (16512, 42000)])
+def test_voice_kernel_equals_plain_version(cuda, taps, W, top):
+    """K5 with its largest windows (two 45 KB windows need the shared
+    memory opt-in) and loops shorter than the window."""
+    args = chip_smoke.span_case(np.random.default_rng(taps + W), 256, W,
+                                taps, (ONE // 4, top), cuda)
+    before = t_voice.resample_voice.launches
+    got = t_voice.resample_voice(*args, W, taps)
+    torch.cuda.synchronize()
+    assert t_voice.resample_voice.launches == before + 1
+    assert torch.equal(got, t_voice.resample_voice_ref(*args, W, taps))
+
+
+def test_voice_kernel_raises_past_its_window(cuda):
+    args = chip_smoke.span_case(np.random.default_rng(0), 8, 16512, 4,
+                                (ONE, 2 * ONE), cuda)
+    with pytest.raises(ValueError, match="largest bucket"):
+        t_voice.resample_voice(*args, 16512, 4)
+
+
+@pytest.mark.parametrize("scene", list(chip_smoke.UHJ_PARITY))
+def test_uhj_scene_on_the_card_matches_the_cpu(cuda, scene):
+    kw = chip_smoke.UHJ_PARITY[scene]
+    g, _ = chip_smoke.uhj_pool_scene("cuda", 64, **kw)
+    c, _ = chip_smoke.uhj_pool_scene("cpu", 64, **kw)
+    span = (t_span.resample_span.launches, t_gen.resample_gen.launches)
+    for n in (8192, 4096, 100):
+        assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
+            <= chip_smoke.UHJ_TOL
+    if scene == "uhj_pool98":
+        assert t_span.resample_span.launches > span[0]
+        assert t_gen.resample_gen.launches == span[1]
+    else:
+        assert t_gen.resample_gen.launches > span[1]

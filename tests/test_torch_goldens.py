@@ -1,10 +1,13 @@
 """The C++ reference's goldens through the port on the CPU: speaker output
 (pairwise stereo, a custom dual-band ambdec decoder with distance
 compensation, the front stabilizer), a direct-path filter, EAXReverb on
-stereo output, and Ambi3D output with near-field compensation.
+stereo output, Ambi3D output with near-field compensation, UHJ and TSME
+stereo output at every encoder tier, UHJ2/UHJ4 and Super Stereo voices at
+every decoder tier, and B-Format voices.
 
 The scenes are those of tests/test_e2e_stereo.py, test_e2e_reverb.py,
-test_e2e_ambdec.py and test_e2e_nfc.py, and the tolerances theirs, on
+test_e2e_ambdec.py, test_e2e_nfc.py, test_e2e_uhj_out.py,
+test_e2e_codec_tiers.py and test_e2e_ambisonic.py, and the tolerances theirs, on
 devices of 4 voices (the scenes play 1 or 2; inactive rows are masked, so
 the capacity does not change the output, only the CPU's work).  The
 goldens are read, never written (ROADMAP C3).  The port runs the direct
@@ -30,6 +33,11 @@ from openal_soft_tpu_torch.alc.device import LoopbackDevice
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
 from tests.test_e2e_ambdec import AMBDEC, AMBDEC_NOCENTER
 from tests.test_e2e_ambdec import _sources as ambdec_sources
+from tests.test_e2e_ambisonic import _bformat_signal as ambi_bformat
+from tests.test_e2e_ambisonic import _uhj_signal as ambi_uhj
+from tests.test_e2e_codec_tiers import _mono_tone as codec_mono_tone
+from tests.test_e2e_codec_tiers import _stereo_prog as codec_stereo_prog
+from tests.test_e2e_uhj_out import _sources as uhj_out_sources
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
@@ -110,7 +118,11 @@ REVERB = {
 # reference's distance-compensation delay lines start uninitialised.
 TOL = dict.fromkeys(STEREO, 1e-5) | dict.fromkeys(REVERB, 1e-5) | {
     "stereo_filtered_tone": 1e-4, "ambdec_itu51": 1e-4, "ambdec_stab": 1e-4,
-    "nfc_ambi3d": 1e-4}
+    "nfc_ambi3d": 1e-4, "uhj_out": 1e-4, "tsme_out": 1e-4,
+    "uhj2_dec_fir256": 1e-4, "uhj2_dec_fir512": 1e-4, "uhj_out_fir256": 1e-4,
+    "uhj_out_fir512": 1e-4, "ss_tsme_dec_iir": 1e-4, "tsme_out_fir256": 1e-4,
+    "src_bformat3d": 1e-5, "src_bformat3d_rot": 1e-5, "src_uhj2": 1e-5,
+    "src_uhj4": 1e-5}
 SKIP = {"ambdec_itu51": 128}
 
 
@@ -178,10 +190,82 @@ def render_nfc(name: str):
     return dev, dev.render_samples(4096)
 
 
+def _one_source(conf: str, fmt: str, data, position, frames: int,
+                **props):
+    """One looping source of ``data`` (buffer format ``fmt``) at
+    ``position`` on a stereo device built under ``conf``."""
+    with _conf(conf):
+        dev = LoopbackDevice(frequency=48000, channels="stereo",
+                             sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    buf = ctx.create_buffer()
+    buf.set_data(data, fmt, "float32", 48000)
+    src = ctx.create_source()
+    src.buffer(buf)
+    src.looping = True
+    src.set("position", position)
+    for k, v in props.items():
+        src.set(k, v)
+    src.play()
+    return dev, dev.render_samples(frames)
+
+
+def render_uhj_out(name: str):
+    """test_e2e_uhj_out.py's scenes: two mono tones on UHJ or TSME stereo
+    output (the default IIR encoders)."""
+    enc = "uhj" if name == "uhj_out" else "tsme"
+    with _conf(f"stereo-encoding = {enc}\n"):
+        dev = LoopbackDevice(frequency=48000, channels="stereo",
+                             sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    for s in uhj_out_sources():
+        _play(ctx, s["data"], 48000, position=s["position"]).play()
+    return dev, dev.render_samples(4096)
+
+
+# test_e2e_codec_tiers.py's scenes: (alsoft.conf, buffer format, data).
+CODEC = {
+    "uhj2_dec_fir256": ("[uhj]\ndecode-filter = fir256\n", "uhj2", "prog"),
+    "uhj2_dec_fir512": ("[uhj]\ndecode-filter = fir512\n", "uhj2", "prog"),
+    "uhj_out_fir256": ("stereo-encoding = uhj\n[uhj]\nencode-filter = "
+                       "fir256\n", "mono", "tone"),
+    "uhj_out_fir512": ("stereo-encoding = uhj\n[uhj]\nencode-filter = "
+                       "fir512\n", "mono", "tone"),
+    "ss_tsme_dec_iir": ("stereo-encoding = tsme\n", "superstereo", "prog"),
+    "tsme_out_fir256": ("stereo-encoding = tsme\n[tsme]\nencode-filter = "
+                        "fir256\n", "mono", "tone"),
+}
+
+
+def render_codec(name: str):
+    conf, fmt, data = CODEC[name]
+    data = codec_stereo_prog() if data == "prog" else codec_mono_tone()
+    return _one_source(conf, fmt, data, (0.4, 0.0, -1.0), 4096)
+
+
+# test_e2e_ambisonic.py's scenes: (buffer format, data, frames, props).
+AMBI = {
+    "src_bformat3d": ("bformat3d", ambi_bformat(48000 // 4), 2 * 8192, {}),
+    "src_bformat3d_rot": ("bformat3d", ambi_bformat(48000 // 4), 8192,
+                          {"orient_at": (0.5, 0.1, -0.8),
+                           "orient_up": (0.0, 1.0, 0.1)}),
+    "src_uhj2": ("uhj2", ambi_uhj(48000 // 4, 2), 2 * 8192, {}),
+    "src_uhj4": ("uhj4", ambi_uhj(48000 // 4, 4), 2 * 8192, {}),
+}
+
+
+def render_ambi(name: str):
+    fmt, data, frames, props = AMBI[name]
+    return _one_source("", fmt, data, (0.4, 0.1, -1.0), frames, **props)
+
+
 RENDER = (dict.fromkeys(STEREO, render_stereo)
           | dict.fromkeys(REVERB, render_reverb)
           | {"ambdec_itu51": render_ambdec, "ambdec_stab": render_ambdec,
-             "nfc_ambi3d": render_nfc})
+             "nfc_ambi3d": render_nfc}
+          | dict.fromkeys(("uhj_out", "tsme_out"), render_uhj_out)
+          | dict.fromkeys(CODEC, render_codec)
+          | dict.fromkeys(AMBI, render_ambi))
 
 
 def deviation(name: str):

@@ -20,7 +20,9 @@ from openal_soft_tpu.ops import resample as j_rs
 from openal_soft_tpu.ops import tables
 from openal_soft_tpu.ops.pallas import resample_unit as j_unit
 from openal_soft_tpu_torch.ops import resample as t_rs
+from openal_soft_tpu_torch.ops.kernels import resample_span as t_span
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
+from openal_soft_tpu_torch.ops.kernels import resample_voice as t_voice
 
 FMA_BOUND = 2e-6
 V, N = 32, 256
@@ -196,3 +198,82 @@ def test_sliced_bank_holds_the_plain_weights(taps):
     assert sl.shape == (4, 52, 32, taps) and sl.is_contiguous()
     for i, k in enumerate(("fil", "phd", "scd", "spd")):
         assert torch.equal(sl[i], bank[k][:, :, lo:lo + taps])
+
+
+def _case(seed: int, V: int, W: int, taps: int, max_inc: int):
+    import chip_smoke
+
+    return chip_smoke.gen_case(np.random.default_rng(seed), V, W, taps,
+                               max_inc, "cpu")
+
+
+@pytest.mark.parametrize("taps", [1, 4, 24])
+def test_span_and_voice_wrappers_are_the_plain_version_on_the_cpu(taps):
+    """K4's and K5's wrappers take CPU tensors to resample_voices (no
+    launch), at a UHJ-padded width whose last tile is partial."""
+    W = 1152
+    args = _case(taps, 16, W, taps, 2 << 16)
+    want = t_rs.resample_voices(*args, W, taps)
+    before = (t_span.resample_span.launches, t_voice.resample_voice.launches)
+    assert torch.equal(t_span.resample_span(*args, W, taps), want)
+    assert torch.equal(t_voice.resample_voice(*args, W, taps), want)
+    assert (t_span.resample_span.launches,
+            t_voice.resample_voice.launches) == before
+
+
+def test_voice_wrapper_raises_past_its_largest_window():
+    """((max_inc * n) >> 16) + 64 above 11264 frames raises, on the CPU
+    too (the TPU kernel returned zeros there)."""
+    assert t_voice.span_for_increment(10 << 16, 1024) == 11264
+    assert t_voice.span_for_increment(1 << 16, 1024) == 2048
+    args = _case(0, 4, 16384, 4, 1 << 16)
+    with pytest.raises(ValueError, match="largest bucket"):
+        t_voice.resample_voice(*args, 16384, 4)
+    with pytest.raises(ValueError, match="largest bucket"):
+        t_voice.span_for_increment(1 << 16, 11201)
+
+
+def test_span_window_bound():
+    """window_frames bounds every tile's source span: the last tap of the
+    tile's last output minus the first tap of its first, plus one."""
+    rng = np.random.default_rng(9)
+    for _ in range(200):
+        inc = int(rng.integers(1, 10 << 16))
+        frac = int(rng.integers(0, 1 << 16))
+        t0 = int(rng.integers(0, 1 << 20))
+        taps = int(rng.choice([1, 2, 4, 24, 48]))
+        p0 = (frac + t0 * inc) >> 16
+        p1 = (frac + (t0 + t_span.TILE - 1) * inc) >> 16
+        assert p1 - p0 + taps <= t_span.window_frames(inc, taps)
+    assert t_span.window_frames(10 << 16, 48) * 4 <= 48 * 1024
+
+
+@pytest.mark.parametrize("resampler", [Resampler.LINEAR, Resampler.BSINC24],
+                         ids=lambda r: r.name)
+def test_span_kernel_wrapper_on_the_cpu_matches_jax(resampler):
+    """K4's wrapper against the JAX package's resample_voices, as K3's."""
+    taps = tables.resampler_max_taps(resampler)
+    args = _voices(4, resampler, unit=False)
+    want = _jax_resample(args, taps)
+    got = t_span.resample_span(*_torch_args(args), _torch_bank(), N,
+                               taps).numpy()
+    assert np.abs(got - want).max() <= FMA_BOUND
+
+
+def test_positions_are_exact_past_int32():
+    """A 16-block window with the UHJ look-ahead at 2x pitch passes 2**31
+    in i*increment: positions and the end-of-window advance stay exact
+    (the JAX package's int32 form would wrap)."""
+    n, inc, frac = 16 * 1024 + 128, np.int32(2 * MIXER_FRAC_ONE - 1), 65535
+    pos, fr = t_rs.positions(torch.tensor([frac], dtype=torch.int32),
+                             torch.tensor([inc]), n)
+    total = frac + np.arange(n, dtype=np.int64) * int(inc)
+    assert total[-1] >= 1 << 31
+    np.testing.assert_array_equal(pos[0].numpy(), total >> 16)
+    np.testing.assert_array_equal(fr[0].numpy(), total & 0xFFFF)
+    pi, pf = t_rs.advance_positions(torch.tensor([7], dtype=torch.int32),
+                                    torch.tensor([frac], dtype=torch.int32),
+                                    torch.tensor([inc]), n)
+    end = frac + n * int(inc)
+    assert (int(pi[0]), int(pf[0])) == (7 + (end >> 16), end & 0xFFFF)
+    assert pi.dtype == pf.dtype == torch.int32
