@@ -24,11 +24,16 @@ result:
   7. kernel     resample_gen against its plain version: every tier (taps 1,
                 2, 4, 24, 48), increments 0.25x..10x, the same branch cases
                 as phase 3: bit-equal required
-  8. kernel     reverb against its plain version at 48 and 96 kHz, one
-                pipeline and the A/B crossfade, windows of 1024 and 16384,
-                >= 128 chunks each including the decaying tail: <= 1e-6
-  9. timing     resample_gen and reverb and their plain versions at the
-                loaded scene's shapes (CUDA events)
+  8. kernel     reverb against its plain version at 44.1, 48 and 96 kHz,
+                one pipeline and the A/B crossfade, windows of 1024 and
+                16384, >= 128 chunks each including the decaying tail, with
+                chunk k+1's early half beside chunk k's late half; the
+                in-order schedule; density 0 and 1 with late_reverb_delay 0
+                and 0.1 s: bit-equal and <= 1e-6 required
+  9. timing     resample_gen and its plain version at the loaded scene's
+                shape (CUDA events); reverb per window at W = 16384 and
+                1024 (device time), beside the previous kernel's where the
+                build directory holds its source (parent/reverb.cu)
  10. loaded     bench.py's loaded scene at full width: 4096 voices at pitch
                 2**U(-1,1), one EAXReverb slot on send 0, 512-block calls;
                 the output must be finite and nonzero
@@ -37,8 +42,16 @@ result:
  12. kernel     biquad against its plain version: V 100 and 256, T 128,
                 1024 and 16384, counters 0, 256 and mixed, lowpass,
                 highpass, bandpass and unfiltered rows, state carried over
-                two calls: bit-equal required
- 13. timing     biquad and its plain version at V=4096, T=1024 and 16384
+                two calls; 1-3 paths over one input with mixed active masks,
+                state in place, V 100 and 4097, T 32, 1024 and 16384; the
+                UHJ four-section all-pass cascades at 3, 24 and 48 rows:
+                bit-equal required
+ 13. timing     biquad (device time) at V=4096, T=1024 as the device calls
+                it (three masked paths), one path at T=1024 and 16384, the
+                UHJ cascades at 24 and 3 rows, beside the previous kernel's
+                where the build directory holds its source
+                (parent/biquad.cu); the chain's floor from the kernel's
+                probe
  14. speakers_filtered  the loaded scene on a stereo speaker device
                 (pairwise panning), every voice behind a lowpass direct
                 filter of gain_hf ~ U(0.1, 0.9), send 0 through a lowpass
@@ -711,6 +724,42 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int, warmup: int) -> float:
+    """Device time of one call of fn: the CUDA kernels' own time summed by
+    torch.profiler over ``iters`` calls, so that the host's launch cost of a
+    kernel shorter than it does not count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dtime = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+    return sum(dtime(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def parent_kernel(name: str):
+    """The previous version of csrc/<name>.cu, where a copy of it stands
+    in the build directory's ``parent/`` (written there with ``git show
+    <commit>:openal_soft_tpu_torch/csrc/<name>.cu``), built with the same
+    flags and loaded; None without one."""
+    import ctypes
+
+    from openal_soft_tpu_torch.ops.kernels import _build
+
+    src = _build.BUILD_DIR / "parent" / f"{name}.cu"
+    if not src.exists():
+        return None
+    return ctypes.CDLL(str(_build.build(f"parent_{name}", src)))
+
+
 def ptxas_lines(name: str) -> list[str]:
     from openal_soft_tpu_torch.ops.kernels import _build
 
@@ -759,10 +808,11 @@ def check_gen_kernel(cuda) -> float:
     return max_err
 
 
-def reverb_case(rate: int, crossfade: bool, device: str):
+def reverb_case(rate: int, crossfade: bool, device: str, **props):
     """A device with one EAXReverb slot: (effect, device params, slot
-    state).  Modulation is on so every stage runs; with ``crossfade`` a
-    second full update leaves the old pipeline "B" fading."""
+    state).  Modulation is on so every stage runs, ``props`` on top; with
+    ``crossfade`` a second full update leaves the old pipeline "B"
+    fading."""
     import torch
 
     from openal_soft_tpu_torch.alc.device import LoopbackDevice
@@ -772,7 +822,7 @@ def reverb_case(rate: int, crossfade: bool, device: str):
     ctx = dev.create_context()
     slot = ctx.create_aux_slot()
     slot.set_effect(ctx.create_effect("eaxreverb"))
-    slot.set_props(modulation_depth=0.6, modulation_time=0.3)
+    slot.set_props(modulation_depth=0.6, modulation_time=0.3, **props)
     params = slot.compute_update()
     if crossfade:
         slot.set_props(decay_time=2.7, density=0.4, diffusion=0.7,
@@ -784,24 +834,65 @@ def reverb_case(rate: int, crossfade: bool, device: str):
     return eff, prm, dev._state["slot0"]
 
 
-def run_reverb_windows(eff, prm, state, windows, kernel: bool) -> list:
-    """Feed ``windows`` ([4, T] tensors) through every live pipeline with
-    the kernel or the plain version; returns the outputs."""
+def run_reverb_windows(eff, prm, state, windows, mode: str,
+                       parent=None) -> list:
+    """Feed ``windows`` ([4, T] tensors) through every live pipeline;
+    returns the outputs.  ``mode``: "kernel" (the wrapper, with the
+    effect's late-tap bound: chunk k+1's early half beside chunk k's late
+    half where that is legal), "in_order" (the wrapper without it),
+    "plain" (the plain version) or "parent" (the ``parent`` library, the
+    previous kernel, through its own C interface)."""
+    import torch
+
     from openal_soft_tpu_torch.ops.kernels import reverb as rev_k
 
-    fn = rev_k.reverb_pipeline if kernel else rev_k.reverb_pipeline_ref
     ctab = eff._tables(state["main"].device)["ctab"]
     pipes = [("A", "")] + ([("B", "old_")] if eff._old_active else [])
     outs = []
     for ain in windows:
         for n, (name, prefix) in enumerate(pipes):
-            outs += fn(ain, state["main"], state[name], prm[prefix + "pi"],
-                       prm[prefix + "pf"], state["offset"], ctab,
-                       write_main=n == 0,
-                       chunk=eff.chunk, e_passes=eff.early_ap_passes,
-                       l_passes=eff.late_ap_passes, mod_win=eff.mod_win)
+            st = state[name]
+            args = (ain, state["main"], st, prm[prefix + "pi"],
+                    prm[prefix + "pf"], state["offset"], ctab)
+            kw = dict(write_main=n == 0, chunk=eff.chunk,
+                      e_passes=eff.early_ap_passes,
+                      l_passes=eff.late_ap_passes, mod_win=eff.mod_win)
+            if mode == "plain":
+                outs += rev_k.reverb_pipeline_ref(*args, **kw)
+            elif mode == "parent":
+                early, late = torch.empty_like(ain), torch.empty_like(ain)
+                c = [ain.data_ptr(), ain.shape[1], int(n == 0),
+                     state["offset"].data_ptr(), state["main"].data_ptr(),
+                     state["main"].shape[1]]
+                for k in rev_k.RINGS:
+                    c += [st[k].data_ptr(), st[k].shape[1]]
+                c += [st[k].data_ptr() for k in rev_k.ZSTATES]
+                c += [st["mod_index"].data_ptr(), st["serial_done"].data_ptr(),
+                      prm[prefix + "pi"].data_ptr(),
+                      prm[prefix + "pf"].data_ptr(), ctab.data_ptr(),
+                      early.data_ptr(), late.data_ptr(), eff.chunk,
+                      eff.early_ap_passes, eff.late_ap_passes, eff.mod_win,
+                      torch.cuda.current_stream().cuda_stream]
+                if parent.reverb_pipeline_launch(*c) != 0:
+                    raise RuntimeError("parent reverb kernel failed")
+                outs += [early, late]
+            else:
+                tap = eff._late_tap_max[prefix] if mode == "kernel" else None
+                outs += rev_k.reverb_pipeline(*args, **kw, max_late_tap=tap)
         state["offset"].add_(ain.shape[1])
     return outs
+
+
+def bind_parent_reverb(lib):
+    """ctypes signature of the previous reverb kernel's C entry point."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.reverb_pipeline_launch
+    fn.argtypes = ([P, I, I, P, P, I] + [P, I] * 5 + [P] * 4 + [P] * 7
+                   + [I, I, I, I, P])
+    fn.restype = I
+    return lib
 
 
 def reverb_windows(rng, T: int, chunk: int, device, min_chunks: int = 128):
@@ -816,47 +907,141 @@ def reverb_windows(rng, T: int, chunk: int, device, min_chunks: int = 128):
 
 
 def check_reverb_kernel(cuda) -> float:
-    """Phase 8: the reverb kernel within REVERB_TOL of its plain version,
-    outputs and carried state."""
+    """Phase 8: the reverb kernel against its plain version, outputs and
+    carried state, bit-equal and within REVERB_TOL: at 44.1, 48 and 96 kHz,
+    one pipeline and the A/B crossfade, windows of 1024 and 16384, >= 128
+    chunks each including the decaying tail, with chunk k+1's early half
+    beside chunk k's late half; then the in-order schedule the wrapper
+    takes without a late-tap bound, and density 0 and 1 with
+    late_reverb_delay 0 and its maximum 0.1 s (>= 64 chunks)."""
     import torch
 
     rng = np.random.default_rng(2)
+    cases = [(rate, crossfade, T, "kernel", {}, 128)
+             for rate in (44100, 48000, 96000) for crossfade in (False, True)
+             for T in (1024, 16384)]
+    cases += [(rate, True, 1024, "in_order", {}, 128)
+              for rate in (44100, 48000, 96000)]
+    cases += [(rate, False, 1024, "kernel",
+               {"density": density, "late_reverb_delay": delay}, 64)
+              for rate in (48000, 96000) for density in (0.0, 1.0)
+              for delay in (0.0, 0.1)]
     max_err = 0.0
-    for rate in (48000, 96000):
-        for crossfade in (False, True):
-            for T in (1024, 16384):
-                eff, prm, st = reverb_case(rate, crossfade, "cuda")
-                st_plain = copy.deepcopy(st)
-                windows = reverb_windows(rng, T, eff.chunk, cuda)
-                got = run_reverb_windows(eff, prm, st, windows, True)
-                want = run_reverb_windows(eff, prm, st_plain, windows,
-                                          False)
-                torch.cuda.synchronize()
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(got, want))
-                for name in ("A", "B"):
-                    for k, v in st[name].items():
-                        err = max(err, float((v.double() - st_plain[name][k]
-                                              .double()).abs().max()))
-                tail = float(max(o.abs().max() for o in got[-2:]))
-                emit({"phase": "kernel", "name": "reverb", "rate": rate,
-                      "crossfade": crossfade, "T": T,
-                      "chunks": len(windows) * T // eff.chunk,
-                      "max_abs_err": err, "tol": REVERB_TOL,
-                      "tail_peak": tail,
-                      "bit_equal": all(torch.equal(a, b)
-                                       for a, b in zip(got, want))})
-                if not err <= REVERB_TOL:
-                    raise AssertionError(f"reverb != plain at {rate} Hz, "
-                                         f"T={T}, crossfade={crossfade}: "
-                                         f"{err}")
-                max_err = max(max_err, err)
+    for rate, crossfade, T, mode, props, chunks in cases:
+        eff, prm, st = reverb_case(rate, crossfade, "cuda", **props)
+        st_plain = copy.deepcopy(st)
+        windows = reverb_windows(rng, T, eff.chunk, cuda, min_chunks=chunks)
+        got = run_reverb_windows(eff, prm, st, windows, mode)
+        want = run_reverb_windows(eff, prm, st_plain, windows, "plain")
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        for name in ("A", "B"):
+            for k, v in st[name].items():
+                err = max(err, float((v.double() - st_plain[name][k]
+                                      .double()).abs().max()))
+                equal &= torch.equal(v, st_plain[name][k])
+        tail = float(max(o.abs().max() for o in got[-2:]))
+        emit({"phase": "kernel", "name": "reverb", "rate": rate,
+              "crossfade": crossfade, "T": T, "schedule": mode, **props,
+              "chunks": len(windows) * T // eff.chunk,
+              "late_tap_max": eff._late_tap_max,
+              "len_late_in": eff.len_late_in,
+              "max_abs_err": err, "tol": REVERB_TOL, "tail_peak": tail,
+              "bit_equal": equal})
+        if not (err <= REVERB_TOL and equal):
+            raise AssertionError(f"reverb != plain at {rate} Hz, T={T}, "
+                                 f"crossfade={crossfade}, {mode}, {props}: "
+                                 f"{err}")
+        max_err = max(max_err, err)
     return max_err
 
 
+def paths_case(rng, V: int, T: int, P: int, device):
+    """x [V, T] and P filter paths laid out as the device holds its aux
+    sends (state [V, P, ...], each path a strided view): biquad_case's
+    filters and mixed counters per path, active masks ~70 % set, path 1
+    without one.  Returns (x, (z, coeffs, target, counter, active))."""
+    import torch
+
+    x = biquad_case(rng, V, T, "mixed", device)[0]
+    parts = [biquad_case(rng, V, T, "mixed", device)[1:] for _ in range(P)]
+    st = tuple(torch.stack([q[i] for q in parts], 1).contiguous()
+               for i in range(4))
+    return x, st + (torch.tensor(rng.random((V, P)) < 0.7, device=device),)
+
+
+def as_paths(st) -> list:
+    """paths_case's state as biquad_paths' FilterPaths (views)."""
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    z, cf, tgt, cnt, fa = st
+    return [biq.FilterPath(z[:, p], cf[:, p], tgt[:, p], cnt[:, p],
+                           None if p == 1 else fa[:, p])
+            for p in range(z.shape[1])]
+
+
+def allpass_case(rng, B: int, T: int, device):
+    """A UHJ codec's four-section all-pass cascade over B rows (ops/uhj.py
+    _allpass4): sections [a, 0, -1, 0, -a] of the +90 filter's
+    coefficients, counter 0, a running state."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import uhj
+
+    cf = torch.tensor([[a, 0.0, -1.0, 0.0, -a] for a in uhj.FILTER2_COEFF],
+                      dtype=torch.float32, device=device)
+    cf = cf.expand(B, 4, 5).contiguous()
+    T_ = lambda a: torch.tensor(a.astype(np.float32), device=device)  # noqa
+    return (T_(rng.standard_normal((B, T)) * 0.3),
+            T_(rng.standard_normal((B, 4, 2)) * 0.1), cf, cf,
+            torch.zeros(B, dtype=torch.int32, device=device))
+
+
+def phase_reverb_timings(cuda, report: dict, smi: str) -> None:
+    """Phase 9 (second half): the reverb kernel's device time per window at
+    48 kHz, W = 16384 (the loaded scene's super-block) and W = 1024
+    (speakers_filtered's per-block launch), beside the previous kernel's
+    where the build directory holds its source (previous, new, new,
+    previous; torch.profiler's kernel time) and the in-order schedule's."""
+    lib = parent_kernel("reverb")
+    if lib is not None:
+        bind_parent_reverb(lib)
+    rng = np.random.default_rng(3)
+    for W in (16 * BLOCK, BLOCK):
+        eff, prm, st = reverb_case(RATE, False, "cuda")
+        ain = reverb_windows(rng, W, eff.chunk, cuda, min_chunks=1)[:1]
+        run = lambda mode: (  # noqa: E731
+            lambda: run_reverb_windows(eff, prm, st, ain, mode, lib))
+        iters = 20 if W > BLOCK else 100
+        times = {}
+        for key, mode in (("parent_ms", "parent"), ("ms", "kernel"),
+                          ("in_order_ms", "in_order"), ("ms_2", "kernel"),
+                          ("parent_ms_2", "parent")):
+            if mode != "parent" or lib is not None:
+                times[key] = device_ms(run(mode), iters, 3)
+        bound_ms, bound_by = reverb_bound(eff, W)
+        row = {"phase": "timing", "name": "reverb", "W": W,
+               "chunk": eff.chunk, **times, "bound_ms": bound_ms,
+               "bound_by": bound_by, "nvidia_smi": smi}
+        row["us_per_chunk"] = {k: 1e3 * v / (W // eff.chunk)
+                               for k, v in times.items()}
+        if W > BLOCK:
+            plain_ms = cuda_ms(run("plain"), 2, 1)
+            row["plain_ms"] = plain_ms
+            report["reverb"].update(ms=times["ms"], plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        emit(row)
+        del eff, prm, st
+
+
 def check_biquad_kernel(cuda) -> float:
-    """Phase 12: biquad bit-equal to its plain version, outputs and carried
-    state, over two consecutive calls."""
+    """Phase 12: the biquad kernel bit-equal to its plain version, outputs
+    and carried state, over two consecutive calls: one two-section path
+    (V 100 and 256, T 128, 1024 and 16384, counters 0, 256 and mixed); P =
+    1..3 paths over one x with mixed active masks and state in place, at V
+    100 and 4097 (not multiples of the 16-line group), T 32, 1024 and
+    16384; four-section all-pass cascades at 3, 24 and 48 rows."""
     import torch
 
     from openal_soft_tpu_torch.ops.kernels import biquad as biq
@@ -866,35 +1051,165 @@ def check_biquad_kernel(cuda) -> float:
              for c in ("0", "256", "mixed")]
     cases += [(V, 16384, "mixed") for V in (100, 256)]
     max_err = 0.0
+
+    def record(row, got, want):
+        nonlocal max_err
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        emit({"phase": "kernel", "name": "biquad", **row, "calls": 2,
+              "max_abs_err": err, "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"biquad != plain at {row}: {err}")
+        max_err = max(max_err, err)
+
     for V, T, counters in cases:
         x, z, cf, tgt, cnt = biquad_case(rng, V, T, counters, cuda)
         x2 = torch.tensor((rng.standard_normal((V, T)) * 0.5).astype(
             np.float32), device=cuda)
         got = want = (None, z, cf, cnt)
-        equal, err, mid = True, 0.0, []
         for xin in (x, x2):                  # state carried to a 2nd call
             got = biq.biquad_dual(xin, got[1], got[2], tgt, got[3])
             want = biq.biquad_dual_ref(xin, want[1], want[2], tgt, want[3])
+        torch.cuda.synchronize()
+        record({"V": V, "T": T, "counters": counters, "paths": 1,
+                "sections": 2, "lines_mid_interpolation":
+                int((got[3] > 0).sum())}, got, want)
+    for V, T in ((100, 32), (100, 1024), (100, 16384), (4097, 32),
+                 (4097, 1024)):
+        for P in (1, 2, 3):
+            x, st = paths_case(rng, V, T, P, cuda)
+            k_st = tuple(t.clone() for t in st)
+            ys_k, ys_p = [], []
+            for xin in (x, x.flip(1).contiguous()):
+                ys_k.append(biq.biquad_paths(xin, as_paths(k_st)))
+                ys_p.append(biq.biquad_paths_ref(xin, as_paths(st)))
             torch.cuda.synchronize()
-            equal &= all(torch.equal(a, b) for a, b in zip(got, want))
-            err = max([err] + [float((a.double() - b.double()).abs().max())
-                               for a, b in zip(got, want)])
-            mid.append(int((got[3] > 0).sum()))
-        emit({"phase": "kernel", "name": "biquad", "V": V, "T": T,
-              "counters": counters, "calls": 2, "max_abs_err": err,
-              "bit_equal": equal, "lines_mid_interpolation": mid})
-        if not equal:
-            raise AssertionError(f"biquad != plain at V={V} T={T} "
-                                 f"counters={counters}: {err}")
-        max_err = max(max_err, err)
+            record({"V": V, "T": T, "paths": P, "sections": 2,
+                    "masked_off": int((~st[4]).sum())},
+                   ys_k + list(k_st), ys_p + list(st))
+    for B in (3, 24, 48):
+        for T in (32, 1024):
+            x, z, cf, tgt, cnt = allpass_case(rng, B, T, cuda)
+            got = biq.biquad_dual(x, z, cf, tgt, cnt)
+            want = biq.biquad_dual_ref(x, z, cf, tgt, cnt)
+            torch.cuda.synchronize()
+            record({"V": B, "T": T, "paths": 1, "sections": 4}, got, want)
     return max_err
 
 
-def biquad_bound(V: int, T: int) -> tuple[float, str]:
-    """A dual-biquad call: x read and y written once, the state, the
-    coefficients, the targets and the counters read and written once;
-    against 18 flops per sample (two TDF2 sections of 9)."""
-    return bound(4 * (2 * V * T + V * (2 * 4 + 3 * 10 + 2)), 18 * V * T)
+def biquad_bound(V: int, T: int, P: int = 1, S: int = 2
+                 ) -> tuple[float, str]:
+    """A biquad call over P paths of S sections: x read once, each path's
+    y written once, its state, coefficients, targets, counter (and mask)
+    read and written once; against 9 flops per section and sample."""
+    return bound(4 * (V * T * (1 + P) + P * V * (2 * 2 * S + 3 * 5 * S + 2))
+                 + P * V, 9 * S * V * T * P)
+
+
+def phase_biquad_timings(cuda, report: dict, smi: str) -> None:
+    """Phase 13: the biquad kernel's device time (torch.profiler's kernel
+    time, CUDA events count the host's launch cost at these sizes) beside
+    the previous kernel's, alternating (previous, new, new, previous),
+    where the build directory holds the previous source: the device's call
+    at V = 4096, T = 1024 (three masked paths: the direct filter and two
+    sends, where the previous kernel took three launches and the selects);
+    one two-section path at T = 1024 and 16384; the UHJ codecs' four-section
+    cascades at 24 and 3 rows (two launches before).  Then the chain's
+    floor: one thread's cycles per sample of a section's loop-carried chain
+    and the SM clock, from the kernel's probe."""
+    import ctypes
+
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    lib = parent_kernel("biquad")
+    if lib is not None:
+        lib.biquad_dual_launch.argtypes = ([ctypes.c_void_p] * 9
+                                           + [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p])
+        lib.biquad_dual_launch.restype = ctypes.c_int
+
+    def parent(x, z, cf, tgt, cnt):
+        outs = [torch.empty_like(t) for t in (x, z, cf, cnt)]
+        err = lib.biquad_dual_launch(
+            x.data_ptr(), z.data_ptr(), cf.data_ptr(), tgt.data_ptr(),
+            cnt.data_ptr(), *[t.data_ptr() for t in outs], x.shape[0],
+            x.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent biquad kernel failed: {err}")
+        return outs
+
+    cycles, ns = biq.chain_probe(1 << 20, cuda)
+    ns_per_sample = ns / (1 << 20)
+    emit({"phase": "timing", "name": "biquad_chain", "samples": 1 << 20,
+          "cycles_per_sample": cycles / (1 << 20),
+          "ns_per_sample": ns_per_sample, "sm_GHz": cycles / ns,
+          "nvidia_smi": smi})
+
+    def timed(row, new, old):
+        times = {}
+        for key, fn in (("parent_ms", old), ("ms", new), ("ms_2", new),
+                        ("parent_ms_2", old)):
+            if fn is not None:
+                times[key] = device_ms(fn, 50, 5)
+        row.update(times, chain_floor_ms=row["T"] * ns_per_sample * 1e-6,
+                   nvidia_smi=smi)
+        emit({"phase": "timing", "name": "biquad", **row})
+        return times
+
+    rng = np.random.default_rng(6)
+    # the device's call: direct + 2 sends, masked, in place
+    x, st = paths_case(rng, N_VOICES, BLOCK, 3, cuda)
+    fa = st[4]
+    paths = as_paths(st)
+    if not torch.equal(biq.biquad_paths(x, as_paths(tuple(
+            t.clone() for t in st))), biq.biquad_paths_ref(x, as_paths(
+                tuple(t.clone() for t in st)))):
+        raise AssertionError("biquad != plain at the device's call")
+
+    def parent_paths():
+        for p, q in enumerate(paths):
+            m = fa[:, p]
+            y, z2, cf2, cnt2 = parent(x, q.z.contiguous(),
+                                      q.coeffs.contiguous(),
+                                      q.target.contiguous(),
+                                      q.counter.contiguous())
+            q.z.copy_(torch.where(m[:, None, None], z2, 0.0))
+            q.coeffs.copy_(torch.where(m[:, None, None], cf2, q.target))
+            q.counter.copy_(torch.where(m, cnt2, 0))
+            torch.where(m[:, None], y, x)
+
+    row = {"call": "device", "V": N_VOICES, "T": BLOCK, "paths": 3,
+           "sections": 2}
+    bound_ms, bound_by = biquad_bound(N_VOICES, BLOCK, 3)
+    row.update(bound_ms=bound_ms, bound_by=bound_by)
+    times = timed(row, lambda: biq.biquad_paths(x, paths),
+                  parent_paths if lib is not None else None)
+    plain_ms = cuda_ms(lambda: biq.biquad_paths_ref(x, paths), 1, 1)
+    report["biquad"].update(ms=times["ms"], plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    del x, st, paths
+    for T in (BLOCK, 16 * BLOCK):
+        args = biquad_case(rng, N_VOICES, T, "mixed", cuda)
+        row = {"call": "one path", "V": N_VOICES, "T": T, "paths": 1,
+               "sections": 2}
+        row.update(zip(("bound_ms", "bound_by"), biquad_bound(N_VOICES, T)))
+        timed(row, lambda: biq.biquad_dual(*args),
+              (lambda: parent(*args)) if lib is not None else None)
+        del args
+    for B in (24, 3):
+        x, z, cf, tgt, cnt = allpass_case(rng, B, BLOCK, cuda)
+        za, zb = z[:, :2].contiguous(), z[:, 2:].contiguous()
+        ca, cb = cf[:, :2].contiguous(), cf[:, 2:].contiguous()
+        row = {"call": "uhj allpass4", "V": B, "T": BLOCK, "paths": 1,
+               "sections": 4}
+        row.update(zip(("bound_ms", "bound_by"),
+                       biquad_bound(B, BLOCK, 1, 4)))
+        timed(row, lambda: biq.biquad_dual(x, z, cf, tgt, cnt),
+              (lambda: parent(parent(x, za, ca, ca, cnt)[0], zb, cb, cb,
+                              cnt)) if lib is not None else None)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1155,19 +1470,7 @@ def main() -> int:
           "write_GBps": N_VOICES * W * 4 / (ms * 1e-3) / 1e9,
           "nvidia_smi": smi})
     del gargs, gsl
-    eff, prm, st = reverb_case(RATE, False, "cuda")
-    ain = reverb_windows(rng, W, eff.chunk, cuda, min_chunks=1)[:1]
-    ms = cuda_ms(lambda: run_reverb_windows(eff, prm, st, ain, True),
-                 20, 3)
-    plain_ms = cuda_ms(lambda: run_reverb_windows(eff, prm, st, ain,
-                                                  False), 2, 1)
-    bound_ms, bound_by = reverb_bound(eff, W)
-    report["reverb"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-    emit({"phase": "timing", "name": "reverb", "W": W, "chunk": eff.chunk,
-          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "us_per_chunk": 1e3 * ms / (W // eff.chunk), "nvidia_smi": smi})
-    del eff, prm, st
+    phase_reverb_timings(cuda, report, smi)
 
     # 10. loaded at full width through the port's entry points
     t0 = time.perf_counter()
@@ -1214,27 +1517,10 @@ def main() -> int:
             raise AssertionError(f"loaded GPU vs CPU port at {n} frames: "
                                  f"{err}")
 
-    # 12-13. the dual biquad against its plain version, then timed at the
-    # main path's shape (V = 4096 voices, T = 1024 per block) and at 16384
+    # 12-13. the biquad kernel against its plain version, then timed at the
+    # main path's shapes
     report["biquad"]["max_abs_err"] = check_biquad_kernel(cuda)
-    rng = np.random.default_rng(6)
-    for T in (BLOCK, 16 * BLOCK):
-        bargs = biquad_case(rng, N_VOICES, T, "mixed", cuda)
-        if not all(torch.equal(a, b) for a, b in zip(
-                biq.biquad_dual(*bargs), biq.biquad_dual_ref(*bargs))):
-            raise AssertionError(f"biquad != plain at V={N_VOICES}, T={T}")
-        ms = cuda_ms(lambda: biq.biquad_dual(*bargs), 50, 5)
-        plain_ms = cuda_ms(lambda: biq.biquad_dual_ref(*bargs), 2, 1)
-        bound_ms, bound_by = biquad_bound(N_VOICES, T)
-        if T == BLOCK:
-            report["biquad"].update(ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "timing", "name": "biquad", "V": N_VOICES, "T": T,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by,
-              "GBps": 8 * N_VOICES * T / (ms * 1e-3) / 1e9,
-              "nvidia_smi": smi})
-        del bargs
+    phase_biquad_timings(cuda, report, smi)
 
     # 14. speakers_filtered at full width through the port's entry points
     t0 = time.perf_counter()

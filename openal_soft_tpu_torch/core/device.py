@@ -5,9 +5,9 @@ The whole voice population lives in one structure-of-arrays param table
 at once on the chosen torch device:
 
     resample (unit, general or span kernel) [-> UHJ/Super Stereo decode]
-    -> [direct filter (biquad kernel)]
+    -> [direct and send filters (one biquad kernel launch for all paths)]
     -> dry ambisonic bus [through the NFC filters]
-    [-> send filters (biquad kernel) -> wet-send mixes -> effect slots]
+    [-> wet-send mixes -> effect slots]
     -> HRTF: HRIR contraction (matmul) [+ HF scale -> baked binaural
        decode] -> skew-sum -> accumulator fold
     -> speakers: [band split] -> decode matrices [-> front stabilizer]
@@ -762,33 +762,45 @@ class RenderDevice:
                                          max_inc=self._max_inc)
         return rs_gen.resample_gen(*args, bank_sl=self._bank_sl[1])
 
-    @staticmethod
-    def _filter(x, z, cf, tgt, cnt, fa):
-        """One filter path through the biquad kernel (``biquad_dual``, the
-        plain version on the CPU) over every line: returns the filtered
-        lines where ``fa`` and x elsewhere.  The path's memories z, current
-        coefficients cf and counter cnt update in place; inactive lines are
-        cleared (DoFilters, voice.cpp:254) with their schedule on target."""
-        y, z2, cf2, cnt2 = biq.biquad_dual(x, z.contiguous(), cf.contiguous(),
-                                           tgt.contiguous(), cnt.contiguous())
-        z.copy_(torch.where(fa[:, None, None], z2, 0.0))
-        cf.copy_(torch.where(fa[:, None, None], cf2, tgt))
-        cnt.copy_(torch.where(fa, cnt2, 0))
-        return torch.where(fa[:, None], y, x)
-
-    def _direct_filter(self, state: dict, ev: dict, cfg: dict, x,
-                       gates: tuple):
-        """The direct path's filters: x through them, or x itself under
-        gate:nofilt, where the memories stay cleared and the schedules
-        converged (the all-inactive result without the pass)."""
+    def _filters(self, state: dict, ev: dict, cfg: dict, x,
+                 gates: tuple, sends: bool):
+        """The voices' filter paths over the unfiltered x: the direct path
+        and, with ``sends``, every aux send, each filtering the same x (one
+        ``biquad_paths`` launch for all; the plain version on the CPU).
+        Each path returns its filtered lines where its active mask is set
+        and x elsewhere; its memories, current coefficients and counter
+        update in place, inactive lines cleared (DoFilters, voice.cpp:254)
+        with their schedule on target.  Under gate:nofilt (gate:nosendfilt)
+        the direct path (the sends) take x as it is, their memories stay
+        cleared and their schedules converged (the all-inactive result
+        without the pass).  Returns (direct [V, n], [send [V, n]])."""
+        paths, names = [], []
         if "gate:nofilt" in gates:
             state["filter_z"].zero_()
             ev["filter_coeffs"].copy_(cfg["filter_target"])
             ev["filter_counter"].zero_()
-            return x
-        return self._filter(x, state["filter_z"], ev["filter_coeffs"],
-                            cfg["filter_target"], ev["filter_counter"],
-                            cfg["filter_active"])
+        else:
+            paths.append(biq.FilterPath(
+                state["filter_z"], ev["filter_coeffs"], cfg["filter_target"],
+                ev["filter_counter"], cfg["filter_active"]))
+            names.append("direct")
+        n_sends = self.num_aux_sends if sends else 0
+        if n_sends and "gate:nosendfilt" in gates:
+            state["send_filter_z"].zero_()
+            ev["send_filter_coeffs"].copy_(cfg["send_filter_target"])
+            ev["send_filter_counter"].zero_()
+        elif n_sends:
+            for snd in range(n_sends):
+                paths.append(biq.FilterPath(
+                    state["send_filter_z"][:, snd],
+                    ev["send_filter_coeffs"][:, snd],
+                    cfg["send_filter_target"][:, snd],
+                    ev["send_filter_counter"][:, snd],
+                    cfg["send_filter_active"][:, snd]))
+                names.append(snd)
+        ys = (dict(zip(names, biq.biquad_paths(x.contiguous(), paths)))
+              if paths else {})
+        return ys.get("direct", x), [ys.get(snd, x) for snd in range(n_sends)]
 
     def _dry_bus(self, state: dict, ev: dict, cfg: dict, x, fade_len: int,
                  no_dry: bool):
@@ -821,38 +833,23 @@ class RenderDevice:
             ev["dry_cur"][:, lo:hi] = cur2
         return torch.cat(pieces, dim=0)
 
-    def _wet_buses(self, state: dict, ev: dict, cfg: dict, x,
-                   fade_len: int, gates: tuple):
-        """The slots' wet buses [n_slots, B, n]: each send filters the
-        unfiltered x through its own filters (every send, once any send
-        filter is active) and mixes its voices onto the bus of its slot (one
-        grouped contraction per send).  Under gate:nosendfilt the sends
-        take x as it is, their memories stay cleared and their schedules
-        converged."""
+    def _wet_buses(self, ev: dict, cfg: dict, x, xs: list, fade_len: int):
+        """The slots' wet buses [n_slots, B, n] of x [V, n]: each send's
+        lines ``xs[snd]`` (x through that send's filters, ``_filters``) mix
+        onto the bus of its slot (one grouped contraction per send)."""
         n_slots, B = len(self.slots), self.wet_channels
-        no_filt = "gate:nosendfilt" in gates
         wet = torch.zeros((n_slots, B, x.shape[1]), dtype=torch.float32,
                           device=x.device)
-        for snd in range(self.num_aux_sends):
-            xs = x if no_filt else self._filter(
-                x, state["send_filter_z"][:, snd],
-                ev["send_filter_coeffs"][:, snd],
-                cfg["send_filter_target"][:, snd],
-                ev["send_filter_counter"][:, snd],
-                cfg["send_filter_active"][:, snd])
+        for snd, xsnd in enumerate(xs):
             group = torch.where(cfg["wet_active"][:, snd],
                                 cfg["wet_slot"][:, snd], n_slots)
             wet_tgt = torch.where(cfg["playing"][:, None],
                                   cfg["wet_tgt"][:, snd, :B], 0.0)
             bus, cur2 = mix_ops.mix_voices_grouped(
-                xs, ev["wet_cur"][:, snd, :B], wet_tgt, ev["fade"], group,
+                xsnd, ev["wet_cur"][:, snd, :B], wet_tgt, ev["fade"], group,
                 n_slots + 1, fade_len)
             wet = wet + bus[:n_slots]
             ev["wet_cur"][:, snd, :B] = cur2
-        if no_filt:
-            state["send_filter_z"].zero_()
-            ev["send_filter_coeffs"].copy_(cfg["send_filter_target"])
-            ev["send_filter_counter"].zero_()
         return wet
 
     def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
@@ -1139,11 +1136,12 @@ class RenderDevice:
              if x_pre is None else x_pre)
         x = torch.where(cfg["active"][:, None], x, 0.0)
         x = self._uhj_decode(state, cfg, x, T)
-        x_mix = self._direct_filter(state, ev, cfg, x, gates)
+        x_mix, x_sends = self._filters(state, ev, cfg, x, gates,
+                                       bool(self.slots))
         dry = self._dry_bus(state, ev, cfg, x_mix, fade_len,
                             "gate:nodry" in gates)
         if self.slots:
-            wet = self._wet_buses(state, ev, cfg, x, fade_len, gates)
+            wet = self._wet_buses(ev, cfg, x, x_sends, fade_len)
             dry = dry + self._run_slots(state, cfg, wet, T, T)
         if self.layout.mode == panning.RenderMode.HRTF:
             x_cat = torch.cat([state["hrtf_history"], x_mix], dim=1)
@@ -1179,7 +1177,8 @@ class RenderDevice:
         W = sb * T
         fade_len = min(GAIN_FADE_SAMPLES, T)
         x_all = self._resample(pool, cfg, ev, W, kind)
-        self._direct_filter(state, ev, cfg, x_all, gates)
+        _, x_sends = self._filters(state, ev, cfg, x_all, gates,
+                                   bool(self.slots))
         g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
         y_ext = hrtf_mix.hrtf_voices_accum_split(
             state["hrtf_history"], x_all, cfg["hrtf_coeffs"],
@@ -1188,7 +1187,7 @@ class RenderDevice:
             cfg["active"], W, fade_len, any_fade)
         contrib = None
         if self.slots:
-            wet = self._wet_buses(state, ev, cfg, x_all, fade_len, gates)
+            wet = self._wet_buses(ev, cfg, x_all, x_sends, fade_len)
             contrib = self._run_slots(state, cfg, wet, W, T)
         dry = self._dry_bus(state, ev, cfg, x_all, fade_len,
                             "gate:nodry" in gates)

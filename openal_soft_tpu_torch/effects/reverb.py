@@ -235,6 +235,7 @@ class ReverbEffect(EffectState):
         self._old_params = None   # fading old-pipeline params
         self._fade_blocks = 0     # blocks left of old-pipeline fade
         self._old_active = False
+        self._late_tap_max = {}   # per pipeline prefix, from update()
 
     # -- host half -----------------------------------------------------------
 
@@ -313,6 +314,7 @@ class ReverbEffect(EffectState):
         self._old_params = None
         self._old_active = False
         self._fade_blocks = 0
+        self._late_tap_max = {}
         dev = self.device.torch_device
         return {
             "offset": torch.zeros((), dtype=torch.int64, device=dev),
@@ -470,6 +472,14 @@ class ReverbEffect(EffectState):
             "g_early": g_early, "g_late": g_late,
         }
         self._prev = cur
+        # The host's bound on each pipeline's late taps, for the kernel's
+        # early-ahead schedule (ops/kernels/reverb.py early_ahead_ok).
+        self._late_tap_max = {"": int(max(np.max(cur["late_taps0"]),
+                                          np.max(cur["late_taps1"])))}
+        if self._old_active:
+            self._late_tap_max["old_"] = int(max(
+                np.max(self._old_params["late_taps0"]),
+                np.max(self._old_params["late_taps1"])))
 
         out = {k: np.asarray(v) for k, v in cur.items()}
         if self._old_active:
@@ -540,7 +550,8 @@ class ReverbEffect(EffectState):
                 params[prefix + "pf"], state["offset"], tabs["ctab"],
                 write_main=n == 0, chunk=self.chunk,
                 e_passes=self.early_ap_passes, l_passes=self.late_ap_passes,
-                mod_win=self.mod_win)
+                mod_win=self.mod_win,
+                max_late_tap=self._late_tap_max.get(prefix))
             if self.upmix:
                 early, pst["split_early"] = f_ops.band_split_hf_scale(
                     torch.matmul(tabs["a2b_e"], early), pst["split_early"],

@@ -1,7 +1,8 @@
 """Filters of the render path on torch tensors (port of ops/filters.py).
 
-* ``biquad_dual_interp``: the voices' direct and send filters, two
-  cascaded TDF2 biquads per line with the 32-sample coefficient lerp,
+* ``biquad_interp``: the voices' direct and send filters (two cascaded
+  TDF2 biquads per line, BiquadInterpFilter::dualProcess) and the UHJ
+  codecs' four-section all-passes, with the 32-sample coefficient lerp,
   sample by sample.  It is the plain version of the Hopper kernel
   ``csrc/biquad.cu`` (``ops/kernels/biquad.py``), which repeats its
   arithmetic in the same order and equals it bit for bit.
@@ -56,39 +57,40 @@ def lerp_coeffs(cf: torch.Tensor, target: torch.Tensor, cnt: torch.Tensor):
     return torch.where(was_active, torch.where(done, target, lerped), cf), cnt2
 
 
-def biquad_dual_interp(x: torch.Tensor, z: torch.Tensor, coeffs: torch.Tensor,
-                       target: torch.Tensor, counter: torch.Tensor):
-    """Dual (chained lp + hp) interpolating biquad over a block
-    (BiquadInterpFilter::dualProcess, biquad.cpp:284-343).
+def biquad_interp(x: torch.Tensor, z: torch.Tensor, coeffs: torch.Tensor,
+                  target: torch.Tensor, counter: torch.Tensor):
+    """S cascaded interpolating TDF2 biquads per line over a block, sample
+    by sample (BiquadInterpFilter::dualProcess, biquad.cpp:284-343, for the
+    voices' filters, S = 2; the UHJ codecs' all-pass cascades take S = 4).
 
-    x [V, T] with T % 32 == 0; z [V, 2, 2] TDF2 states ([:, filter, (z1,
-    z2)]); coeffs, target [V, 2, 5] ([b0, b1, b2, a1, a2]); counter [V]
+    x [V, T] with T % 32 == 0; z [V, S, 2] TDF2 states ([:, section, (z1,
+    z2)]); coeffs, target [V, S, 5] ([b0, b1, b2, a1, a2]); counter [V]
     int32 samples left in the interpolation (>= 0).  Every 32 samples the
     coefficients step with ``lerp_coeffs``.  Each product and sum rounds on
-    its own, in the reference's TDF2 order.
-    Returns (y [V, T], z' [V, 2, 2], coeffs' [V, 2, 5], counter' [V])."""
+    its own, in the reference's TDF2 order, so S = 4 equals two S = 2 calls
+    in a row from the same counter.
+    Returns (y [V, T], z' [V, S, 2], coeffs' [V, S, 5], counter' [V])."""
     V, T = x.shape
+    S = z.shape[1]
     if T % SAMPLES_PER_STEP:
-        raise ValueError(f"biquad_dual_interp: T={T} is not a multiple of "
+        raise ValueError(f"biquad_interp: T={T} is not a multiple of "
                          f"{SAMPLES_PER_STEP}")
     xt = x.T.contiguous()
-    z00, z01, z10, z11 = z[:, 0, 0], z[:, 0, 1], z[:, 1, 0], z[:, 1, 1]
+    zs = [(z[:, s, 0], z[:, s, 1]) for s in range(S)]
     cf, cnt = coeffs, counter
     ys = []
-    for s in range(0, T, SAMPLES_PER_STEP):
-        b00, b01, b02, a01, a02 = cf[:, 0].unbind(1)
-        b10, b11, b12, a11, a12 = cf[:, 1].unbind(1)
-        for t in range(s, s + SAMPLES_PER_STEP):
-            xin = xt[t]
-            y0 = xin * b00 + z00
-            z00 = xin * b01 - y0 * a01 + z01
-            z01 = xin * b02 - y0 * a02
-            y1 = y0 * b10 + z10
-            z10 = y0 * b11 - y1 * a11 + z11
-            z11 = y0 * b12 - y1 * a12
-            ys.append(y1)
+    for s0 in range(0, T, SAMPLES_PER_STEP):
+        sec = [cf[:, s].unbind(1) for s in range(S)]
+        for t in range(s0, s0 + SAMPLES_PER_STEP):
+            v = xt[t]
+            for s, (b0, b1, b2, a1, a2) in enumerate(sec):
+                z0, z1 = zs[s]
+                y = v * b0 + z0
+                zs[s] = (v * b1 - y * a1 + z1, v * b2 - y * a2)
+                v = y
+            ys.append(v)
         cf, cnt = lerp_coeffs(cf, target, cnt)
-    z2 = torch.stack([z00, z01, z10, z11], 1).reshape(V, 2, 2)
+    z2 = torch.stack([torch.stack(p, 1) for p in zs], 1)
     return torch.stack(ys, 1), z2, cf, cnt
 
 

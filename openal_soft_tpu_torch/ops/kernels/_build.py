@@ -46,9 +46,10 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    src = SRC_DIR / f"{name}.cu"
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile csrc/<name>.cu (or ``src``) unless an up-to-date library
+    exists."""
+    src = SRC_DIR / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{digest}.so"

@@ -50,7 +50,9 @@ NL = 4
 RINGS = ("late_in", "early_ap", "early_dl", "vecap", "late_dl")
 ZSTATES = ("lp_z", "hp_z", "t60_hf_z", "t60_lf_z")
 N_PI = 34
-N_PF = 63
+N_PARAMS = 63                   # pf's parameters; the filter constants follow
+N_KC = 12 + 2 * 32              # constants per (filter, line), see filter_consts
+N_PF = N_PARAMS + 4 * NL * N_KC
 _MOD_FRACMASK = (1 << 24) - 1
 _MOD_HALF = 1 << 23
 _U32 = 0xFFFFFFFF
@@ -65,7 +67,9 @@ def pack_params(p: dict, prefix: str = "") -> tuple[np.ndarray, np.ndarray]:
           e_ap_off[4] e_off[4] l_ap_off[4] l_off[4] mod_step serial
       pf: early_coeff0 early_coeff1 e_coeff density_gain e_ap_coeff
           l_ap_coeff mix_x mix_y mod_depth t60_mid[4] lp[5] hp[5]
-          t60_hf[4,5] t60_lf[4,5]
+          t60_hf[4,5] t60_lf[4,5], then ``filter_consts`` of the four
+          filters (computed here, once per parameter change, so that the
+          kernel does not recompute them per launch)
     """
     g = lambda k: np.asarray(p[prefix + k])
     pi = np.concatenate([
@@ -78,8 +82,37 @@ def pack_params(p: dict, prefix: str = "") -> tuple[np.ndarray, np.ndarray]:
         "early_coeff0", "early_coeff1", "e_coeff", "density_gain",
         "e_ap_coeff", "l_ap_coeff", "mix_x", "mix_y", "mod_depth",
         "t60_mid", "lp", "hp", "t60_hf", "t60_lf")])
+    pf = np.concatenate([pf, filter_consts(pf)])
     assert pi.shape == (N_PI,) and pf.shape == (N_PF,)
     return pi, pf
+
+
+def filter_consts(pf: np.ndarray) -> np.ndarray:
+    """The balanced-companion constants of the pipeline's four filters (lp,
+    hp, t60_hf, t60_lf) per line, by ``ops/filters.biquad_consts`` on the
+    CPU: per (filter, line) b0, A00, A01, A10, A11, B0, B1, delta, the four
+    entries of A^32, then the rows C*A^k, k < 32, of each state component.
+    pf: the 63 packed parameters.  Returns f32 [4 * NL * N_KC]."""
+    p = torch.from_numpy(np.asarray(pf[:N_PARAMS], np.float32))
+    out = []
+    for cf in (p[13:18].expand(NL, 5), p[18:23].expand(NL, 5),
+               p[23:43].reshape(NL, 5), p[43:63].reshape(NL, 5)):
+        k = f_ops.biquad_consts(cf[None])
+        rows = [k["b0"], *k["A"], *k["B"], k["delta"].expand_as(k["b0"]),
+                *k["M"]]
+        out.append(torch.cat([torch.stack([r[0] for r in rows], -1),
+                              k["ws"][0][:, 0].T, k["ws"][1][:, 0].T], -1))
+    return torch.stack(out).numpy().reshape(-1)
+
+
+def early_ahead_ok(len_late_in: int, max_late_tap: int, chunk: int) -> bool:
+    """Whether the kernel may run chunk k+1's early half beside chunk k's
+    late half: the early half writes late_in at [off + chunk, off +
+    2*chunk) while the late half reads it at lags >= 0 behind [off, off +
+    chunk), so the two never meet in the ring when it is at least the
+    largest late tap (the crossfade's old taps included) plus two chunks
+    long."""
+    return len_late_in >= max_late_tap + 2 * chunk
 
 
 # --- plain version ------------------------------------------------------------
@@ -252,7 +285,7 @@ def _launcher():
                    + [P, I] * len(RINGS)       # rings and their lengths
                    + [P] * len(ZSTATES)        # biquad states
                    + [P, P, P, P, P, P, P]     # mod_index, serial_done, pi, pf, ctab, early, late
-                   + [I, I, I, I, P])          # chunk, e_passes, l_passes, mod_win, stream
+                   + [I, I, I, I, I, P])       # chunk, e_passes, l_passes, mod_win, ahead, stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -265,14 +298,20 @@ def _ring(name: str, x: torch.Tensor, device) -> None:
 
 
 def reverb_pipeline(ain, main, st, pi, pf, offset, ctab, *, write_main: bool,
-                    chunk: int, e_passes: int, l_passes: int, mod_win: int):
+                    chunk: int, e_passes: int, l_passes: int, mod_win: int,
+                    max_late_tap: int | None = None):
     """Run one pipeline over ain [4, W]: returns (early, late) [4, W] f32.
 
     ``st`` holds the pipeline's state tensors (``RINGS``, ``ZSTATES``,
     ``mod_index`` and ``serial_done``, both int64 0-d); ``offset`` is the
     0-d int64 ring offset of the window's first sample; ``ctab`` the
     [256, 4] cubic modulation table.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel on the current stream."""
+    CUDA tensors launch the kernel on the current stream.  ``max_late_tap``
+    is the host's bound on the pipeline's late taps (the crossfade's old
+    ones included): where ``early_ahead_ok`` holds for it the kernel runs
+    chunk k+1's early half beside chunk k's late half; without it, or where
+    it fails, the kernel runs the halves in order.  Both give the same
+    values."""
     if ain.device.type == "cpu":
         return reverb_pipeline_ref(ain, main, st, pi, pf, offset, ctab,
                                    write_main=write_main, chunk=chunk,
@@ -310,7 +349,9 @@ def reverb_pipeline(ain, main, st, pi, pf, offset, ctab, *, write_main: bool,
     args += [st[k].data_ptr() for k in ZSTATES]
     args += [st["mod_index"].data_ptr(), st["serial_done"].data_ptr(),
              pi.data_ptr(), pf.data_ptr(), ctab.data_ptr(), early.data_ptr(),
-             late.data_ptr(), chunk, e_passes, l_passes, mod_win]
+             late.data_ptr(), chunk, e_passes, l_passes, mod_win,
+             int(max_late_tap is not None and early_ahead_ok(
+                 st["late_in"].shape[1], max_late_tap, chunk))]
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)

@@ -25,9 +25,9 @@ Three quality tiers: the FIR decoders and encoders at 256 or 512 taps
 carried history), and the default IIR tier, whose phase shifts are two
 cascades of four all-pass sections (core/allpass_iir.hpp).  Each section,
 y = a*x + z0; z0' = z1; z1' = a*y - x, is a TDF2 biquad with the fixed
-coefficients [a, 0, -1, 0, -a], so ``_allpass4`` runs a cascade as two
-``biquad_dual`` calls at counter 0 (sections 0-1, then 2-3): the biquad
-kernel on the card, its sample-sequential plain version on the CPU.  The
+coefficients [a, 0, -1, 0, -a], so ``_allpass4`` runs a cascade as one
+four-section ``biquad_dual`` call at counter 0: the biquad kernel on the
+card, its sample-sequential plain version on the CPU.  The
 streams of one decode or encode that share a cascade run as rows of one
 call.  The sample-sequential TDF2 rounds as the reference's all-pass
 does; the JAX package runs the sections chunk-parallel, so the two differ
@@ -295,28 +295,25 @@ def _prime4(x0: torch.Tensor, state: torch.Tensor, coeffs: np.ndarray):
 
 @functools.lru_cache(maxsize=64)
 def _sections(coeffs: bytes, B: int, device) -> tuple:
-    """The cascade's two biquad_dual coefficient sets [B, 2, 5] (read-only,
-    shared by callers): sections (0, 1) and (2, 3), each [a, 0, -1, 0, -a];
-    ``coeffs`` the four float32 coefficients' bytes."""
+    """The cascade's four sections as biquad coefficients [B, 4, 5], each
+    [a, 0, -1, 0, -a], and a zero counter [B] (read-only, shared by
+    callers); ``coeffs`` the four float32 coefficients' bytes."""
     rows = np.array([[a, 0.0, -1.0, 0.0, -a]
                      for a in np.frombuffer(coeffs, f32)], f32)
     t = torch.tensor(rows, device=device)
-    return tuple(t[2 * c:2 * c + 2].expand(B, 2, 5).contiguous()
-                 for c in range(2))
+    return (t.expand(B, 4, 5).contiguous(),
+            torch.zeros(B, dtype=torch.int32, device=device))
 
 
 def _allpass4(xs: list, states: list, coeffs: np.ndarray):
     """Four cascaded all-pass sections over the rows of ``xs`` (each
-    [b_i, T]) from ``states`` (each [b_i, 4, 2]): one pair of biquad_dual
-    launches for all rows.  Returns ([y_i [b_i, T]], [state_i'])."""
+    [b_i, T]) from ``states`` (each [b_i, 4, 2]): one four-section
+    biquad_dual launch for all rows.  Returns ([y_i [b_i, T]],
+    [state_i'])."""
     x = torch.cat(xs, dim=0)      # a new contiguous, aligned tensor
     z = torch.cat(states, dim=0)
-    B = x.shape[0]
-    cfa, cfb = _sections(coeffs.tobytes(), B, x.device)
-    cnt = torch.zeros(B, dtype=torch.int32, device=x.device)
-    y, za, _, _ = biq.biquad_dual(x, z[:, 0:2].contiguous(), cfa, cfa, cnt)
-    y, zb, _, _ = biq.biquad_dual(y, z[:, 2:4].contiguous(), cfb, cfb, cnt)
-    z2 = torch.cat([za, zb], dim=1)
+    cf, cnt = _sections(coeffs.tobytes(), x.shape[0], x.device)
+    y, z2, _, _ = biq.biquad_dual(x, z, cf, cf, cnt)
     sizes = [t.shape[0] for t in xs]
     return list(torch.split(y, sizes)), list(torch.split(z2, sizes))
 

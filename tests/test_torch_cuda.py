@@ -81,11 +81,40 @@ def test_reverb_kernel_within_bound_of_plain_version(cuda, rate, crossfade):
                 for k, v in st.items()}
     windows = chip_smoke.reverb_windows(np.random.default_rng(rate), 1024,
                                         eff.chunk, cuda)
-    got = chip_smoke.run_reverb_windows(eff, prm, st, windows, True)
-    want = chip_smoke.run_reverb_windows(eff, prm, st_plain, windows, False)
+    got = chip_smoke.run_reverb_windows(eff, prm, st, windows, "kernel")
+    want = chip_smoke.run_reverb_windows(eff, prm, st_plain, windows,
+                                         "plain")
     torch.cuda.synchronize()
     assert max(float((a - b).abs().max()) for a, b in zip(got, want)) \
         <= chip_smoke.REVERB_TOL
+
+
+@pytest.mark.parametrize("schedule", ["kernel", "in_order"])
+@pytest.mark.parametrize("delay", [0.0, 0.1])
+@pytest.mark.parametrize("rate", [44100, 48000, 96000])
+def test_reverb_kernel_equals_plain_version_in_both_schedules(
+        cuda, rate, delay, schedule):
+    """Bit-equal over >= 64 chunks with the crossfade in flight: chunk k+1's
+    early half beside chunk k's late half (the effect's late-tap bound
+    allows it), and the in-order schedule the wrapper takes without one."""
+    eff, prm, st = chip_smoke.reverb_case(rate, True, "cuda",
+                                          late_reverb_delay=delay)
+    st_plain = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                    {n: t.clone() for n, t in v.items()})
+                for k, v in st.items()}
+    windows = chip_smoke.reverb_windows(np.random.default_rng(rate), 1024,
+                                        eff.chunk, cuda, min_chunks=64)
+    before = t_rev.reverb_pipeline.launches
+    got = chip_smoke.run_reverb_windows(eff, prm, st, windows, schedule)
+    want = chip_smoke.run_reverb_windows(eff, prm, st_plain, windows,
+                                         "plain")
+    torch.cuda.synchronize()
+    assert t_rev.reverb_pipeline.launches == before + 2 * len(windows)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for name in ("A", "B"):
+        for k, v in st[name].items():
+            assert torch.equal(v, st_plain[name][k]), (name, k)
 
 
 def test_loaded_scene_on_the_card_matches_the_cpu(cuda):
@@ -104,6 +133,37 @@ def test_loaded_scene_on_the_card_matches_the_cpu(cuda):
 def test_biquad_kernel_equals_plain_version(cuda, V, T, counters):
     args = chip_smoke.biquad_case(np.random.default_rng(V + T), V, T,
                                   counters, cuda)
+    before = t_biq.biquad_dual.launches
+    got = t_biq.biquad_dual(*args)
+    torch.cuda.synchronize()
+    assert t_biq.biquad_dual.launches == before + 1
+    for a, b in zip(got, t_biq.biquad_dual_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("V,T", [(100, 32), (4097, 1024), (64, 16384)])
+def test_biquad_paths_kernel_equals_plain_version(cuda, V, T, P):
+    """P paths over one x with mixed active masks, state in place, over two
+    calls; V not a multiple of the kernel's 16-line group."""
+    rng = np.random.default_rng(V + T + P)
+    x, st = chip_smoke.paths_case(rng, V, T, P, cuda)
+    mine = tuple(t.clone() for t in st)
+    before = t_biq.biquad_dual.launches
+    for xin in (x, x.flip(1).contiguous()):
+        got = t_biq.biquad_paths(xin, chip_smoke.as_paths(mine))
+        want = t_biq.biquad_paths_ref(xin, chip_smoke.as_paths(st))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert t_biq.biquad_dual.launches == before + 2
+    for a, b in zip(mine, st):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T", [32, 1024])
+@pytest.mark.parametrize("B", [3, 48])
+def test_biquad_four_section_cascade_equals_plain_version(cuda, B, T):
+    args = chip_smoke.allpass_case(np.random.default_rng(B + T), B, T, cuda)
     before = t_biq.biquad_dual.launches
     got = t_biq.biquad_dual(*args)
     torch.cuda.synchronize()

@@ -122,3 +122,69 @@ def test_reverb_state_matches_jax(jax_run, torch_run):
                 assert np.abs(g - v).max() <= TOL, (name, k)
             else:
                 assert int(g) == int(v), (name, k)
+
+
+# --- the kernel's host half: filter constants and the early-ahead schedule ---
+
+
+def _effect(rate: int, **props):
+    dev = TorchLoopback(frequency=rate, hrtf=True, capacity=4, device="cpu")
+    ctx = dev.create_context()
+    slot = ctx.create_aux_slot()
+    slot.set_effect(ctx.create_effect("eaxreverb"))
+    if props:
+        slot.set_props(**props)
+    return slot.state, slot.compute_update()
+
+
+@pytest.mark.parametrize("rate", [44100, 48000, 96000])
+def test_packed_filter_constants_are_the_plain_versions(rate):
+    """pf carries the four filters' balanced-companion constants, computed
+    on the host once per update in numpy; they equal, bit for bit, what the
+    plain version computes from the same coefficients in torch."""
+    from openal_soft_tpu_torch.ops import filters as t_f
+
+    eff, params = _effect(rate, density=0.3, gain_hf=0.5, gain_lf=0.7)
+    pf = torch.tensor(params["pf"])
+    assert pf.shape == (t_rev.N_PF,)
+    kc = pf[t_rev.N_PARAMS:].reshape(4, t_rev.NL, t_rev.N_KC)
+    n = eff.chunk // 32
+    coeffs = [pf[13:18].expand(n, 4, 5), pf[18:23].expand(n, 4, 5),
+              pf[23:43].reshape(4, 5).expand(n, 4, 5),
+              pf[43:63].reshape(4, 5).expand(n, 4, 5)]
+    for q, cf in enumerate(coeffs):
+        k = t_f.biquad_consts(cf)
+        want = [k["b0"][0], *(a[0] for a in k["A"]), *(b[0] for b in k["B"]),
+                k["delta"][0], *(m[0] for m in k["M"])]
+        for i, w in enumerate(want):
+            assert torch.equal(kc[q, :, i], w), (q, i)
+        assert torch.equal(kc[q, :, 12:44], k["ws"][0][:, 0].T)
+        assert torch.equal(kc[q, :, 44:], k["ws"][1][:, 0].T)
+
+
+@pytest.mark.parametrize("density", [0.0, 1.0])
+@pytest.mark.parametrize("delay", [0.0, 0.1])
+@pytest.mark.parametrize("rate", [44100, 48000, 96000])
+def test_early_ahead_schedule_is_legal_for_the_effects_taps(rate, delay,
+                                                            density):
+    """The kernel may run chunk k+1's early half beside chunk k's late half
+    when late_in holds the largest late tap plus two chunks; the effect's
+    late-input line is sized for late_reverb_delay's maximum at density 1,
+    so its taps allow it at every rate, also through a crossfade."""
+    eff, _ = _effect(rate, density=density, late_reverb_delay=delay)
+    taps = eff._late_tap_max[""]
+    assert t_rev.early_ahead_ok(eff.len_late_in, taps, eff.chunk)
+    assert eff.len_late_in - taps >= 2 * eff.chunk
+    # a late tap one sample longer than the bound forces the in-order
+    # schedule
+    worst = eff.len_late_in - 2 * eff.chunk
+    assert t_rev.early_ahead_ok(eff.len_late_in, worst, eff.chunk)
+    assert not t_rev.early_ahead_ok(eff.len_late_in, worst + 1, eff.chunk)
+    slot_props = {"density": 1.0 - density, "late_reverb_delay": 0.1 - delay}
+    eff.device.slots[0].set_props(**slot_props)
+    eff.device.slots[0].compute_update()
+    assert eff._old_active
+    assert t_rev.early_ahead_ok(eff.len_late_in, eff._late_tap_max["old_"],
+                                eff.chunk)
+    assert t_rev.early_ahead_ok(eff.len_late_in, eff._late_tap_max[""],
+                                eff.chunk)

@@ -123,8 +123,9 @@ def test_encoder_matches_jax(enc, tier):
 
 def test_iir_decode_runs_two_biquad_launches_per_cascade(monkeypatch):
     """A UHJ4 decode's five all-pass streams run as two cascades (the +90
-    filters on D/T and S, the direct filters on S, D/T and Q), each as two
-    dual-biquad calls over all rows: four calls, whatever the voice count."""
+    filters on D/T and S, the direct filters on S, D/T and Q), each as one
+    four-section biquad call over all rows: two calls, whatever the voice
+    count."""
     calls = []
     real = t_biq.biquad_dual
 
@@ -136,7 +137,7 @@ def test_iir_decode_runs_two_biquad_launches_per_cascade(monkeypatch):
     st = {k: torch.zeros(5, 4, 2) for k in ("f2dt", "f1s", "f1dt", "f2s",
                                             "f1q")}
     t_uhj.uhj_decode_iir(torch.zeros(5, 4, T + 1), st, T, 4)
-    assert calls == [(10, T), (10, T), (15, T), (15, T)]
+    assert calls == [(10, T), (15, T)]
 
 
 def _allpass_f64(x: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
