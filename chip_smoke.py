@@ -23,17 +23,24 @@ result:
                 (8192 frames), per-block (4096) and odd sizes, <= 1e-5
   7. kernel     resample_gen against its plain version: every tier (taps 1,
                 2, 4, 24, 48), increments 0.25x..10x, the same branch cases
-                as phase 3: bit-equal required
+                as phase 3; then WINDOW_CASES: ragged W (1, 100, 1023,
+                16385), taps 48 at 10x (the largest window and weight
+                tables), loops of 1-3 frames wrapped and not: bit-equal
+                required
   8. kernel     reverb against its plain version at 44.1, 48 and 96 kHz,
                 one pipeline and the A/B crossfade, windows of 1024 and
                 16384, >= 128 chunks each including the decaying tail, with
                 chunk k+1's early half beside chunk k's late half; the
                 in-order schedule; density 0 and 1 with late_reverb_delay 0
                 and 0.1 s: bit-equal and <= 1e-6 required
-  9. timing     resample_gen and its plain version at the loaded scene's
-                shape (CUDA events); reverb per window at W = 16384 and
-                1024 (device time), beside the previous kernel's where the
-                build directory holds its source (parent/reverb.cu)
+  9. timing     resample_gen at the loaded scene's shape, the kernel alone
+                beside the previous kernel where the build directory holds
+                its source (parent/resample_gen.cu; previous, new, new,
+                previous, 20 launches each, CUDA events), through its
+                wrapper, and its plain version; reverb per window at
+                W = 16384 and 1024 (device time), beside the previous
+                kernel's where the build directory holds its source
+                (parent/reverb.cu)
  10. loaded     bench.py's loaded scene at full width: 4096 voices at pitch
                 2**U(-1,1), one EAXReverb slot on send 0, 512-block calls;
                 the output must be finite and nonzero
@@ -66,13 +73,17 @@ result:
  16. kernel     resample_span against its plain version: V 256; W 128,
                 1024, 1152, 16512 and 16640; taps 1, 2, 4, 24 and 48;
                 increments 0.25x..10x; the branch cases of phase 3 and
-                windows at the pool's end: bit-equal required
+                windows at the pool's end; then WINDOW_CASES as phase 7:
+                bit-equal required
  17. kernel     resample_voice against its plain version, loops shorter
                 than the window included: bit-equal required
  18. timing     resample_span, resample_gen and resample_voice and their
                 plain versions at [4096, 16512] on a 268 MB pool, and
                 resample_span and resample_gen at the loaded scene's
-                [4096, 16384] on its 9.2 MB pool (CUDA events)
+                [4096, 16384] on its 9.2 MB pool (CUDA events); K3 and K4
+                alone beside their previous kernels as in phase 9 and
+                through their wrappers; the previous K4 also with its
+                wrapper's read of max(increment) before each launch
  19. uhj_big_pool  4096 looping mono voices at pitch 2**U(-1,1) over 1024
                 distinct 4-second buffers, 16 UHJ2 ambience beds and 8
                 Super Stereo stems of 20 s, on a UHJ stereo device: a
@@ -424,28 +435,133 @@ def span_case(rng, V: int, W: int, taps: int, inc_range: tuple, device):
     return tuple(args)
 
 
-def check_resample_kernel(cuda, name: str, wrapper, ref, cases) -> float:
-    """Phases 16-17: ``wrapper`` bit-equal to its plain version ``ref``
-    over ``cases`` of (V, W, taps, (lowest, highest increment))."""
+def short_loop_case(rng, V: int, W: int, taps: int, inc_range: tuple,
+                    device):
+    """span_case's voices, every one looping over 1-3 frames (empty
+    sources stay silent), every other one wrapped (its history wraps
+    backward), starting from a few taps before loop_start to past
+    loop_end, at increments drawn from ``inc_range``."""
     import torch
 
-    rng = np.random.default_rng(8)
+    args = list(span_case(rng, V, W, taps, inc_range, device))
+    lens = args[2].cpu().numpy()
+    ls = rng.integers(0, np.maximum(lens - 3, 1))
+    le = ls + rng.integers(1, 4, V)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=device).to(torch.int32)
+    args[3], args[4] = Ti(ls), Ti(le)
+    args[5] = torch.ones(V, dtype=torch.bool, device=device)
+    args[6] = torch.tensor(np.arange(V) % 2 == 0, device=device)
+    args[7] = Ti(ls + rng.integers(-taps - 4, 8, V))
+    return tuple(args)
+
+
+# Phases 7 and 16, for both staged-window kernels (K3, K4): (V, W, taps,
+# (lowest, highest increment), kind): ragged widths, the largest window
+# with the largest weight tables (taps 48 at 10x), loops of 1-3 frames.
+ONE = 1 << 16
+WINDOW_CASES = (
+    [(256, W, taps, (ONE // 4, 10 * ONE), "branches")
+     for W in (1, 100, 1023, 16385) for taps in (4, 48)]
+    + [(256, W, 48, (10 * ONE, 10 * ONE), "branches") for W in (1024, 16384)]
+    + [(256, W, taps, (ONE // 4, 10 * ONE), "short_loops")
+       for W in (128, 1024, 16385) for taps in (1, 4, 48)])
+
+
+def check_resample_kernel(cuda, name: str, wrapper, ref, cases,
+                          seed: int = 8) -> float:
+    """Phases 7 and 16-17: ``wrapper`` bit-equal to its plain version
+    ``ref`` over ``cases`` of (V, W, taps, (lowest, highest increment)[,
+    kind]): kind "branches" (span_case, the default) or "short_loops"
+    (short_loop_case)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
     max_err = 0.0
-    for V, W, taps, inc_range in cases:
-        args = span_case(rng, V, W, taps, inc_range, cuda)
+    for V, W, taps, inc_range, *rest in cases:
+        kind = rest[0] if rest else "branches"
+        make = short_loop_case if kind == "short_loops" else span_case
+        args = make(rng, V, W, taps, inc_range, cuda)
         got = wrapper(*args, W, taps)
         want = ref(*args, W, taps)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         equal = bool(torch.equal(got, want))
         emit({"phase": "kernel", "name": name, "V": V, "W": W, "taps": taps,
-              "inc_range": list(inc_range), "max_abs_err": err,
-              "bit_equal": equal})
+              "inc_range": list(inc_range), "kind": kind,
+              "max_abs_err": err, "bit_equal": equal})
         if not equal:
             raise AssertionError(f"{name} != plain at W={W} taps={taps} "
-                                 f"inc {inc_range}: max |diff| {err}")
+                                 f"inc {inc_range} ({kind}): max |diff| "
+                                 f"{err}")
         max_err = max(max_err, err)
+        del args, got, want
     return max_err
+
+
+def window_launchers(name: str, args, W: int, taps: int, bank_sl,
+                     max_inc: int) -> dict:
+    """One launch each of the staged-window kernel ``name`` (resample_gen
+    or resample_span) as the device calls it (window sized for
+    ``max_inc``) and, where the build directory holds its previous source
+    (``parent_kernel``), of the previous kernel, on inputs packed once and
+    into one output: {"new": fn, "parent": fn}, each returning the output,
+    so that CUDA events time the kernel alone."""
+    import ctypes
+
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
+
+    pool, sf = args[0], args[11]
+    meta = rs_gen.pack_meta(*args[1:11])
+    V = meta.shape[0]
+    out = torch.empty((V, W), dtype=torch.float32, device=pool.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(fn, *extra):
+        def go():   # holds the tensors whose pointers it passes
+            err = fn(pool.data_ptr(), pool.numel(), meta.data_ptr(),
+                     sf.data_ptr(), bank_sl.data_ptr(), out.data_ptr(), V, W,
+                     taps, *extra, stream)
+            if err != 0:
+                raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            return out
+        return go
+
+    mod = rs_gen if name == "resample_gen" else rs_span
+    fns = {"new": run(mod._launcher(), rs_gen.window_cap(max_inc, taps))}
+    lib = parent_kernel(name)
+    if lib is not None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        span = name == "resample_span"
+        old = getattr(lib, f"{name}_launch")
+        old.argtypes = ([P, ctypes.c_longlong, P, P, P, P, I, I, I]
+                        + [I] * span + [P])
+        old.restype = I
+        fns["parent"] = run(old, *([rs_gen.window_frames(max_inc, taps)]
+                                   * span))
+    return fns
+
+
+def time_window_kernel(name: str, args, W: int, taps: int, bank_sl,
+                       max_inc: int, want) -> dict:
+    """Phases 9 and 18: the kernel and its previous version (where built)
+    each bit-equal to ``want``, then CUDA-event ms per launch over 20
+    launches each, in the order previous, new, new, previous."""
+    import torch
+
+    fns = window_launchers(name, args, W, taps, bank_sl, max_inc)
+    for which, fn in fns.items():
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"{name} ({which}) != plain at [{W}], "
+                                 f"taps {taps}")
+    times = {}
+    for key, which in (("parent_ms", "parent"), ("ms", "new"),
+                       ("ms_2", "new"), ("parent_ms_2", "parent")):
+        if which in fns:
+            times[key] = cuda_ms(fns[which], 20, 3)
+    return times
 
 
 def window_bound(V: int, W: int, taps: int, frac: np.ndarray,
@@ -612,21 +728,38 @@ def phase_timings(cuda, report: dict, smi: str) -> None:
                "pool_bytes": 4 * args[0].numel(), "V": N_VOICES, "W": W,
                "taps": taps, "pitch": list(pitch), "plain_ms": plain_ms,
                "nvidia_smi": smi}
+        max_inc = int(inc.max())
         for name in names:
             fn = fns[name]
-            if not torch.equal(fn(*args, W, taps, bank_sl=sl), want):
-                raise AssertionError(f"{name} != plain at the {pool_name} "
-                                     f"timing shape")
-            ms = cuda_ms(lambda: fn(*args, W, taps, bank_sl=sl), 20, 3)
+            if name == "resample_voice":
+                if not torch.equal(fn(*args, W, taps, bank_sl=sl), want):
+                    raise AssertionError(f"{name} != plain at the "
+                                         f"{pool_name} timing shape")
+                times = {"ms": cuda_ms(lambda: fn(*args, W, taps,
+                                                  bank_sl=sl), 20, 3)}
+            else:
+                times = time_window_kernel(name, args, W, taps, sl, max_inc,
+                                           want)
+                times["wrapper_ms"] = cuda_ms(lambda: fn(
+                    *args, W, taps, bank_sl=sl, max_inc=max_inc), 20, 3)
+                if name == "resample_span" and "parent_ms" in times:
+                    # the previous wrapper read max(increment) back from the
+                    # card before every launch
+                    old = window_launchers(name, args, W, taps, sl,
+                                           max_inc)["parent"]
+                    times["parent_host_read_ms"] = cuda_ms(
+                        lambda: (int(args[9].max()), old()), 20, 3)
+            ms = times["ms"]
             if name == "resample_gen":
                 bound_ms, bound_by = resample_bound(
                     N_VOICES, W, taps, args[0].numel(), 12, sl.numel())
             else:
                 bound_ms, bound_by = window_bound(N_VOICES, W, taps, frac,
                                                   inc, sl.numel())
-            row[name] = {"ms": ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by,
-                         "write_GBps": N_VOICES * W * 4 / (ms * 1e-3) / 1e9}
+            row[name] = {**times, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "bound_share": bound_ms / ms,
+                         "write_GBps": {k: N_VOICES * W * 4 / (v * 1e-3)
+                                        / 1e9 for k, v in times.items()}}
             main = {"resample_span": pitch == (-1.0, 1.0)
                     and pool_name == "pool268MB",
                     "resample_voice": True}.get(name, False)
@@ -748,8 +881,9 @@ def device_ms(fn, iters: int, warmup: int) -> float:
 def parent_kernel(name: str):
     """The previous version of csrc/<name>.cu, where a copy of it stands
     in the build directory's ``parent/`` (written there with ``git show
-    <commit>:openal_soft_tpu_torch/csrc/<name>.cu``), built with the same
-    flags and loaded; None without one."""
+    <commit>:openal_soft_tpu_torch/csrc/<name>.cu``, beside the previous
+    version of any header it includes, or the current csrc/ one is used),
+    built with the same flags and loaded; None without one."""
     import ctypes
 
     from openal_soft_tpu_torch.ops.kernels import _build
@@ -782,7 +916,8 @@ def build_all() -> None:
 
 
 def check_gen_kernel(cuda) -> float:
-    """Phase 7: resample_gen bit-equal to its plain version."""
+    """Phase 7: resample_gen bit-equal to its plain version, then over
+    WINDOW_CASES."""
     import torch
 
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
@@ -805,7 +940,9 @@ def check_gen_kernel(cuda) -> float:
                 raise AssertionError(f"resample_gen != plain at W={W} "
                                      f"taps={taps}: max |diff| {err}")
             max_err = max(max_err, err)
-    return max_err
+    return max(max_err, check_resample_kernel(
+        cuda, "resample_gen", rs_gen.resample_gen, rs_gen.resample_gen_ref,
+        WINDOW_CASES, seed=12))
 
 
 def reverb_case(rate: int, crossfade: bool, device: str, **props):
@@ -1453,23 +1590,32 @@ def main() -> int:
              torch.tensor(rng.random(N_VOICES).astype(np.float32),
                           device=cuda), bank)
     gsl = rs_gen.slice_bank(bank, taps)
-    got = rs_gen.resample_gen(*gargs, W, taps, bank_sl=gsl)
-    if not torch.equal(got, rs_gen.resample_gen_ref(*gargs, W, taps)):
+    max_inc = int(gargs[9].max())
+    want = rs_gen.resample_gen_ref(*gargs, W, taps)
+    got = rs_gen.resample_gen(*gargs, W, taps, bank_sl=gsl, max_inc=max_inc)
+    if not torch.equal(got, want):
         raise AssertionError("resample_gen != plain at the loaded shape")
     del got
-    ms = cuda_ms(lambda: rs_gen.resample_gen(*gargs, W, taps, bank_sl=gsl),
-                 20, 3)
+    times = time_window_kernel("resample_gen", gargs, W, taps, gsl, max_inc,
+                               want)
+    wrapper_ms = cuda_ms(lambda: rs_gen.resample_gen(
+        *gargs, W, taps, bank_sl=gsl, max_inc=max_inc), 20, 3)
     plain_ms = cuda_ms(lambda: rs_gen.resample_gen_ref(*gargs, W, taps),
                        5, 1)
     bound_ms, bound_by = resample_bound(N_VOICES, W, taps, pool.size, 12,
                                         gsl.numel() + N_VOICES)
+    ms = times["ms"]
     report["resample_gen"].update(ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
     emit({"phase": "timing", "name": "resample_gen", "V": N_VOICES, "W": W,
-          "taps": taps, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "write_GBps": N_VOICES * W * 4 / (ms * 1e-3) / 1e9,
+          "taps": taps, "max_inc": max_inc, **times,
+          "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_share": bound_ms / ms,
+          "write_GBps": {k: N_VOICES * W * 4 / (v * 1e-3) / 1e9
+                         for k, v in times.items()},
           "nvidia_smi": smi})
-    del gargs, gsl
+    del gargs, gsl, want
     phase_reverb_timings(cuda, report, smi)
 
     # 10. loaded at full width through the port's entry points
@@ -1585,7 +1731,7 @@ def main() -> int:
         cuda, "resample_span", rs_span.resample_span,
         rs_span.resample_span_ref,
         [(256, W, taps, (one // 4, 10 * one)) for taps in (1, 2, 4, 24, 48)
-         for W in (128, 1024, 1152, 16512, 16640)])
+         for W in (128, 1024, 1152, 16512, 16640)] + WINDOW_CASES)
     report["resample_voice"]["max_abs_err"] = check_resample_kernel(
         cuda, "resample_voice", rs_voice.resample_voice,
         rs_voice.resample_voice_ref,

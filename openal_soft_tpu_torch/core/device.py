@@ -725,7 +725,7 @@ class RenderDevice:
         on the fused branch, one HRTF contraction)."""
         t = self.table
         act = t.active
-        # The span kernel sizes its window for every row it resamples.
+        # The span and general kernels size their windows for every row.
         self._max_inc = int(t.increment.max())
         if bool(np.all(t.increment[act] == 1 << MIXER_FRAC_BITS)):
             kind = "unit"
@@ -757,10 +757,8 @@ class RenderDevice:
                 cfg["loop_end"], cfg["has_loop"], ev["has_wrapped"],
                 ev["pos_int"], ev["pos_frac"], cfg["increment"],
                 cfg["bank_row"], cfg["sf"], self._bank_dev, n, self._taps)
-        if kind == "span":
-            return rs_span.resample_span(*args, bank_sl=self._bank_sl[1],
-                                         max_inc=self._max_inc)
-        return rs_gen.resample_gen(*args, bank_sl=self._bank_sl[1])
+        fn = rs_span.resample_span if kind == "span" else rs_gen.resample_gen
+        return fn(*args, bank_sl=self._bank_sl[1], max_inc=self._max_inc)
 
     def _filters(self, state: dict, ev: dict, cfg: dict, x,
                  gates: tuple, sends: bool):

@@ -60,11 +60,27 @@ def test_port_on_the_card_matches_the_cpu(cuda):
     assert t_unit.resample_unit.launches > before
 
 
-@pytest.mark.parametrize("taps", [1, 2, 4, 24, 48])
-@pytest.mark.parametrize("W", [128, 16384])
-def test_general_kernel_equals_plain_version(cuda, taps, W):
-    args = chip_smoke.gen_case(np.random.default_rng(taps + W), 256, W, taps,
-                               10 << 16, cuda)
+# chip_smoke.WINDOW_CASES as (W, taps, increments, kind): ragged widths,
+# taps 48 at 10x, loops of 1-3 frames.
+WINDOW_CASES = [c[1:] for c in chip_smoke.WINDOW_CASES]
+
+
+def _window_case(W, taps, incs, kind, cuda):
+    make = (chip_smoke.short_loop_case if kind == "short_loops"
+            else chip_smoke.span_case)
+    return make(np.random.default_rng(taps + W), 256, W, taps, incs, cuda)
+
+
+@pytest.mark.parametrize(
+    "W,taps,incs,kind",
+    [(W, taps, None, "gen_case") for W in (128, 16384)
+     for taps in (1, 2, 4, 24, 48)] + WINDOW_CASES)
+def test_general_kernel_equals_plain_version(cuda, W, taps, incs, kind):
+    if kind == "gen_case":
+        args = chip_smoke.gen_case(np.random.default_rng(taps + W), 256, W,
+                                   taps, 10 << 16, cuda)
+    else:
+        args = _window_case(W, taps, incs, kind, cuda)
     before = t_gen.resample_gen.launches
     got = t_gen.resample_gen(*args, W, taps)
     torch.cuda.synchronize()
@@ -186,13 +202,19 @@ def test_filtered_scene_on_the_card_matches_the_cpu(cuda, scene):
 ONE = 1 << 16
 
 
-@pytest.mark.parametrize("taps", [1, 4, 48])
-@pytest.mark.parametrize("W", [128, 1152, 16512])
-def test_span_kernel_equals_plain_version(cuda, taps, W):
+@pytest.mark.parametrize(
+    "W,taps,incs,kind",
+    [(W, taps, (ONE // 4, 10 * ONE), "span_case") for W in (128, 1152, 16512)
+     for taps in (1, 4, 48)] + WINDOW_CASES)
+def test_span_kernel_equals_plain_version(cuda, W, taps, incs, kind):
     """K4 at 0.25x-10x, with the branch cases and windows at the pool's
-    end, including a partial last tile."""
-    args = chip_smoke.span_case(np.random.default_rng(taps * W), 256, W,
-                                taps, (ONE // 4, 10 * ONE), cuda)
+    end, including a partial last tile; then ragged widths, the largest
+    window and loops of 1-3 frames."""
+    if kind == "span_case":
+        args = chip_smoke.span_case(np.random.default_rng(taps * W), 256, W,
+                                    taps, incs, cuda)
+    else:
+        args = _window_case(W, taps, incs, kind, cuda)
     before = t_span.resample_span.launches
     got = t_span.resample_span(*args, W, taps)
     torch.cuda.synchronize()

@@ -20,6 +20,7 @@ from openal_soft_tpu.ops import resample as j_rs
 from openal_soft_tpu.ops import tables
 from openal_soft_tpu.ops.pallas import resample_unit as j_unit
 from openal_soft_tpu_torch.ops import resample as t_rs
+from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
 from openal_soft_tpu_torch.ops.kernels import resample_span as t_span
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
 from openal_soft_tpu_torch.ops.kernels import resample_voice as t_voice
@@ -277,3 +278,112 @@ def test_positions_are_exact_past_int32():
     end = frac + n * int(inc)
     assert (int(pi[0]), int(pf[0])) == (7 + (end >> 16), end & 0xFFFF)
     assert pi.dtype == pf.dtype == torch.int32
+
+
+def _staged_window_model(args, n: int, taps: int, cap: int,
+                         tile: int) -> torch.Tensor:
+    """Plain torch model of what the staged-window kernels (K3, K4,
+    csrc/resample_window.cuh) stage and read, block by block: per voice
+    the weight tables W0/WD [taps][32]; per tile of ``tile`` outputs,
+    windows of equal length, each the most outputs whose frames fit
+    ``cap``; per window its bounds (p0 = pos(t), s0 = p0 - center, span),
+    run A from resolve(s0) (up to loop_end, or the last frame), then the
+    loop's frames one by one (d - n1) mod loop_len or the end clamp,
+    silence staged as 0; each output gathers its taps from the window and
+    the tables in the plain version's order."""
+    (pool, off, lens, ls, le, loop, wrapped, pos_int, frac, inc, row, sf,
+     bank) = args
+    P = pool.numel()
+    lo = 24 - taps // 2
+    center = taps // 2 - 1
+    out = torch.empty((off.shape[0], n), dtype=torch.float32)
+    for v in range(off.shape[0]):
+        sel = {k: bank[k][int(row[v]), :, lo:lo + taps] for k in bank}
+        w0 = (sel["fil"] + sf[v] * sel["scd"]).T.contiguous()    # [taps, 32]
+        wd = (sel["phd"] + sf[v] * sel["spd"]).T.contiguous()
+        L = max(int(le[v]) - int(ls[v]), 1)
+        last = max(int(lens[v]) - 1, 0)
+        f0, dinc = int(frac[v]), int(inc[v])
+        for t0 in range(0, n, tile):
+            n_tile = min(tile, n - t0)
+            fit = ((cap - taps - 1) << 16) // dinc + 1 if dinc > 0 else n_tile
+            nwin = -(-n_tile // fit)
+            n_w = -(-n_tile // nwin)
+            for i in range(nwin):
+                t = t0 + i * n_w
+                m = min(n_w, n_tile - i * n_w)
+                base = (f0 + t * dinc) >> 16
+                span = ((f0 + (t + m - 1) * dinc) >> 16) - base + taps
+                s0 = int(pos_int[v]) + base - center
+                a = s0
+                if bool(loop[v]):
+                    if s0 >= int(le[v]) or (bool(wrapped[v])
+                                            and s0 < int(ls[v])):
+                        a = (s0 - int(ls[v])) % L + int(ls[v])
+                    n1 = int(le[v]) - a
+                else:
+                    n1 = last - s0 + 1
+                n1 = min(max(n1, 0), span)
+                g = int(off[v]) + a
+                assert (g & 3) + span <= (cap + 6) & ~3   # the buffer
+                d = torch.arange(span)
+                tail = (int(ls[v]) + (d - n1) % L if bool(loop[v])
+                        else torch.full_like(d, last))
+                idx = torch.where(d < n1, a + d, tail)
+                valid = (s0 + d >= 0) & (int(lens[v]) > 0)
+                win = torch.where(valid, pool[(int(off[v]) + idx).clamp(
+                    0, P - 1)], 0.0)
+                total = f0 + torch.arange(t, t + m, dtype=torch.int64) * dinc
+                rel = (total >> 16) - base
+                fr = total & 0xFFFF
+                ph = fr >> 11
+                pf = (fr & 2047).to(torch.float32) * (1.0 / 2048)
+                acc = torch.zeros(m, dtype=torch.float32)
+                for j in range(taps):
+                    w = w0[j, ph] + pf * wd[j, ph]
+                    acc = acc + w * win[rel + j]
+                out[v, t:t + m] = acc
+    return out
+
+
+@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("taps", [1, 4, 48])
+def test_staged_window_model_equals_plain_version(kind, taps):
+    """What the staged-window kernels stage (window bounds per tile, run
+    or frame-by-frame fill, end clamp, weight tables) gives
+    resample_voices bit for bit, over chip_smoke's branch cases (loop
+    seams, short loops, backward wraps, end clamps, pre-start silence,
+    empty sources, buffers at the pool's end) and loops of 1-3 frames,
+    at 0.25x-10x; with the window sized for the largest increment, and
+    for a smaller one (more, shorter windows per tile)."""
+    import chip_smoke
+
+    make = (chip_smoke.short_loop_case if kind == "short_loops"
+            else chip_smoke.span_case)
+    rng = np.random.default_rng(21 + taps)
+    for V, W in ((64, 100), (16, 2048)):
+        args = make(rng, V, W, taps, (MIXER_FRAC_ONE // 4,
+                                      10 * MIXER_FRAC_ONE), "cpu")
+        want = t_rs.resample_voices(*args, W, taps)
+        top = int(args[9].max())
+        for max_inc, tile in ((top, 1024), (top, -(-W // 256) * 256),
+                              (MIXER_FRAC_ONE, 256)):
+            cap = t_gen.window_cap(max_inc, taps)
+            got = _staged_window_model(args, W, taps, cap, tile)
+            assert torch.equal(got, want), (V, W, max_inc, tile)
+
+
+def test_staged_window_shared_memory_fits():
+    """Every (taps, max_inc) the K3 and K4 wrappers accept sizes a block's
+    shared memory (weight tables and the window buffer) within a Hopper
+    block's limit; windows are sized for MAX_INC at most."""
+    for taps in range(1, 49):
+        for max_inc in (None, 0, 1, MIXER_FRAC_ONE, 2 * MIXER_FRAC_ONE,
+                        10 * MIXER_FRAC_ONE, 10 * MIXER_FRAC_ONE + 1,
+                        2**31 - 1):
+            cap = t_gen.window_cap(max_inc, taps)
+            assert cap >= taps + 1
+            assert cap <= t_gen.window_frames(t_gen.MAX_INC, taps)
+            assert t_gen.smem_bytes(cap, taps) <= t_gen.SMEM_LIMIT
+    assert t_gen.smem_bytes(t_gen.window_cap(None, 48), 48) == 4 * (
+        2 * 32 * 48 + 10284)
