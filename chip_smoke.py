@@ -13,9 +13,17 @@ result:
                 kernel's registers and spills (-Xptxas -v)
   3. kernel     resample_unit against its plain version on voices with loop
                 seams, short loops, backward wraps, end clamps, pre-start
-                silence and empty sources: bit-equal required
-  4. timing     resample_unit and its plain version at the main path's shape
-                (CUDA events)
+                silence and empty sources; then UNIT_CASES: ragged W (1,
+                100, 1023, 16385) with buffers at the pool's end, loops of
+                1-3 frames wrapped and not, taps 1, 4 and 48: bit-equal
+                required
+  4. timing     resample_unit at the main path's shape [4096, 16384] and at
+                one block [4096, 1024]: the kernel alone beside the
+                previous kernel where the build directory holds its source
+                (parent/resample_unit.cu; previous, new, new, previous, 20
+                launches each, CUDA events), through its wrapper, and its
+                plain version; at 16384 also resample_gen alone on the same
+                voices at increment 1<<16 (the same function)
   5. best_case  bench.py's best_case scene at full width: 4096 looping HRTF
                 voices, 48 one-second tones, 512 blocks of 1024 frames per
                 call; the output must be finite and nonzero
@@ -76,14 +84,15 @@ result:
                 windows at the pool's end; then WINDOW_CASES as phase 7:
                 bit-equal required
  17. kernel     resample_voice against its plain version, loops shorter
-                than the window included: bit-equal required
+                than the window included; then VOICE_CASES: WINDOW_CASES's
+                shapes within its largest bucket: bit-equal required
  18. timing     resample_span, resample_gen and resample_voice and their
-                plain versions at [4096, 16512] on a 268 MB pool, and
-                resample_span and resample_gen at the loaded scene's
-                [4096, 16384] on its 9.2 MB pool (CUDA events); K3 and K4
-                alone beside their previous kernels as in phase 9 and
-                through their wrappers; the previous K4 also with its
-                wrapper's read of max(increment) before each launch
+                plain versions at [4096, 16512] on a 268 MB pool,
+                resample_voice also at [4096, 1024], and resample_span and
+                resample_gen at the loaded scene's [4096, 16384] on its
+                9.2 MB pool (CUDA events): each kernel alone beside its
+                previous kernel as in phase 9 (parent/resample_voice.cu
+                and the others), and through its wrapper
  19. uhj_big_pool  4096 looping mono voices at pitch 2**U(-1,1) over 1024
                 distinct 4-second buffers, 16 UHJ2 ambience beds and 8
                 Super Stereo stems of 20 s, on a UHJ stereo device: a
@@ -467,6 +476,51 @@ WINDOW_CASES = (
        for W in (128, 1024, 16385) for taps in (1, 4, 48)])
 
 
+# Phase 3's cases for K1 beyond unit_case, as (W, taps, kind): ragged
+# widths with span_case's voices (unit_case's branches and buffers at the
+# pool's end), and loops of 1-3 frames, at taps 1, 4 and 48.
+UNIT_CASES = (
+    [(W, taps, "branches") for W in (1, 100, 1023, 16385)
+     for taps in (1, 4, 48)]
+    + [(W, taps, "short_loops") for W in (128, 1024, 16385)
+       for taps in (1, 4, 48)])
+
+# Phase 17's cases for K5 beyond its first ones: WINDOW_CASES's shapes
+# within K5's largest bucket (((max_inc * W) >> 16) + 64 <= 11264).
+VOICE_CASES = (
+    [(256, W, taps, (ONE // 4, 10 * ONE), "branches")
+     for W in (1, 100, 1023) for taps in (4, 48)]
+    + [(256, 1024, 48, (10 * ONE, 10 * ONE), "branches")]
+    + [(256, 16385, taps, (ONE // 4, 42000), "branches") for taps in (4, 48)]
+    + [(256, W, taps, (ONE // 4, 10 * ONE), "short_loops")
+       for W in (128, 1024) for taps in (1, 4, 48)]
+    + [(256, 16385, taps, (ONE // 4, 42000), "short_loops")
+       for taps in (1, 4, 48)])
+
+
+def unit_weights(args, taps: int):
+    """[V, taps] f32 on the voices' device: each voice's constant weights
+    at its phase, resampler row and scale (args as gen_case's), as the
+    device computes them for the unit plan."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import tables
+    from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
+
+    frac, row, sf = (a.cpu().numpy() for a in (args[8], args[10], args[11]))
+    w = rs_unit.unit_weights_np(tables.weight_bank(), row, sf, frac, taps)
+    return torch.tensor(w, device=args[0].device)
+
+
+def unit_window_case(rng, V: int, W: int, taps: int, kind: str, device):
+    """K1's inputs from span_case's voices (kind "branches") or
+    short_loop_case's ("short_loops") at unit increment, with their
+    weights from unit_weights."""
+    make = short_loop_case if kind == "short_loops" else span_case
+    args = make(rng, V, W, taps, (ONE, ONE), device)
+    return (*args[:8], unit_weights(args, taps))
+
+
 def check_resample_kernel(cuda, name: str, wrapper, ref, cases,
                           seed: int = 8) -> float:
     """Phases 7 and 16-17: ``wrapper`` bit-equal to its plain version
@@ -498,70 +552,115 @@ def check_resample_kernel(cuda, name: str, wrapper, ref, cases,
     return max_err
 
 
-def window_launchers(name: str, args, W: int, taps: int, bank_sl,
-                     max_inc: int) -> dict:
-    """One launch each of the staged-window kernel ``name`` (resample_gen
-    or resample_span) as the device calls it (window sized for
-    ``max_inc``) and, where the build directory holds its previous source
-    (``parent_kernel``), of the previous kernel, on inputs packed once and
-    into one output: {"new": fn, "parent": fn}, each returning the output,
-    so that CUDA events time the kernel alone."""
-    import ctypes
-
+def launch_fns(name: str, bind, new_fn, parent_extra, args: tuple,
+               out) -> dict:
+    """{"new": fn, "parent": fn}: one launch each of the kernel ``name``
+    (the C entry point ``new_fn``) and, where the build directory holds
+    its previous source (``parent_kernel``), of the previous kernel with
+    its own trailing arguments ``parent_extra`` instead of the new
+    kernel's, each with the ctypes signature ``bind`` gives it and the
+    pointer arguments ``args`` (the new kernel's extra arguments last),
+    returning ``out``, so that CUDA events time the kernel alone."""
     import torch
 
-    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
-    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
-
-    pool, sf = args[0], args[11]
-    meta = rs_gen.pack_meta(*args[1:11])
-    V = meta.shape[0]
-    out = torch.empty((V, W), dtype=torch.float32, device=pool.device)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run(fn, *extra):
+    def run(fn, call_args):
         def go():   # holds the tensors whose pointers it passes
-            err = fn(pool.data_ptr(), pool.numel(), meta.data_ptr(),
-                     sf.data_ptr(), bank_sl.data_ptr(), out.data_ptr(), V, W,
-                     taps, *extra, stream)
+            err = fn(*call_args, stream)
             if err != 0:
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
             return out
         return go
 
-    mod = rs_gen if name == "resample_gen" else rs_span
-    fns = {"new": run(mod._launcher(), rs_gen.window_cap(max_inc, taps))}
+    n_extra = len(parent_extra)
+    fns = {"new": run(new_fn, args)}
     lib = parent_kernel(name)
     if lib is not None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        span = name == "resample_span"
-        old = getattr(lib, f"{name}_launch")
-        old.argtypes = ([P, ctypes.c_longlong, P, P, P, P, I, I, I]
-                        + [I] * span + [P])
-        old.restype = I
-        fns["parent"] = run(old, *([rs_gen.window_frames(max_inc, taps)]
-                                   * span))
+        old = bind(getattr(lib, f"{name}_launch"))
+        fns["parent"] = run(old, (*args[:len(args) - n_extra],
+                                  *parent_extra))
     return fns
 
 
-def time_window_kernel(name: str, args, W: int, taps: int, bank_sl,
-                       max_inc: int, want) -> dict:
-    """Phases 9 and 18: the kernel and its previous version (where built)
-    each bit-equal to ``want``, then CUDA-event ms per launch over 20
-    launches each, in the order previous, new, new, previous."""
+def window_launchers(name: str, args, W: int, taps: int, bank_sl,
+                     max_inc: int) -> dict:
+    """launch_fns for the staged-window kernel ``name`` (resample_gen,
+    resample_span or resample_voice) as the device calls it (window sized
+    for ``max_inc``) on inputs packed once and into one output; the
+    previous resample_voice takes its window bucket (span_for_increment)
+    where the others take the window's frames."""
     import torch
 
-    fns = window_launchers(name, args, W, taps, bank_sl, max_inc)
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
+    from openal_soft_tpu_torch.ops.kernels import resample_voice as rs_voice
+
+    pool, sf = args[0], args[11]
+    meta = rs_gen.pack_meta(*args[1:11])
+    V = meta.shape[0]
+    out = torch.empty((V, W), dtype=torch.float32, device=pool.device)
+    mod = {"resample_gen": rs_gen, "resample_span": rs_span,
+           "resample_voice": rs_voice}[name]
+    cap = rs_gen.window_cap(max_inc, taps)
+    parent = (rs_voice.span_for_increment(max_inc, W)
+              if name == "resample_voice" else cap)
+    return launch_fns(name, rs_gen.bind_window_launch, mod._launcher(),
+                      (parent,),
+                      (pool.data_ptr(), pool.numel(), meta.data_ptr(),
+                       sf.data_ptr(), bank_sl.data_ptr(), out.data_ptr(), V,
+                       W, taps, cap), out)
+
+
+def unit_launchers(args, W: int) -> dict:
+    """launch_fns for the unit kernel (K1) on ``args`` (unit_case's),
+    packed once and into one output; the previous kernel takes the same
+    arguments."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
+
+    pool, w = args[0], args[8]
+    meta = rs_unit.pack_meta(*args[1:8])
+    V, taps = w.shape
+    out = torch.empty((V, W), dtype=torch.float32, device=pool.device)
+    return launch_fns("resample_unit", rs_unit.bind_unit_launch,
+                      rs_unit._launcher(), (),
+                      (pool.data_ptr(), pool.numel(), meta.data_ptr(),
+                       w.data_ptr(), out.data_ptr(), V, W, taps), out)
+
+
+def time_alone(name: str, fns: dict, want, what: str) -> dict:
+    """Phases 4, 9 and 18: the kernel and its previous version (where
+    built) each bit-equal to ``want``, then CUDA-event ms per launch over
+    20 launches each, in the order previous, new, new, previous."""
+    import torch
+
     for which, fn in fns.items():
         if not torch.equal(fn(), want):
-            raise AssertionError(f"{name} ({which}) != plain at [{W}], "
-                                 f"taps {taps}")
+            raise AssertionError(f"{name} ({which}) != plain at {what}")
     times = {}
     for key, which in (("parent_ms", "parent"), ("ms", "new"),
                        ("ms_2", "new"), ("parent_ms_2", "parent")):
         if which in fns:
             times[key] = cuda_ms(fns[which], 20, 3)
     return times
+
+
+def time_window_kernel(name: str, args, W: int, taps: int, bank_sl,
+                       max_inc: int, want) -> dict:
+    """time_alone for a staged-window kernel as the device calls it."""
+    return time_alone(name, window_launchers(name, args, W, taps, bank_sl,
+                                             max_inc), want,
+                      f"[{W}], taps {taps}")
+
+
+def rates(row: dict, times: dict, out_bytes: int, bound_ms: float) -> dict:
+    """``row`` with ``times`` (ms) and beside each its share of the bound
+    and the rate (GB/s) at which it writes the call's ``out_bytes``."""
+    return {**row, **times, "bound_share": {
+        k: bound_ms / v for k, v in times.items()}, "write_GBps": {
+        k: out_bytes / (v * 1e-3) / 1e9 for k, v in times.items()}}
 
 
 def window_bound(V: int, W: int, taps: int, frac: np.ndarray,
@@ -684,12 +783,14 @@ def pool_voices(rng, V: int, n_bufs: int, frames: int, pitch: tuple, device,
 
 def phase_timings(cuda, report: dict, smi: str) -> None:
     """Phase 18: the span (K4), general (K3) and per-voice (K5) resamplers
-    on the same inputs, each held bit-equal to the plain version first.
-    [4096, 16512] (uhj_big_pool's 16-block window with the UHJ look-ahead)
-    on a 268 MB pool at pitch 2**U(-1,1), K4 and K3; at pitch
-    2**U(-1,-0.6), where K5's largest window covers 16512 outputs, all
-    three; and K4 and K3 at the loaded scene's [4096, 16384] on its
-    9.2 MB pool of 48 one-second tones."""
+    on the same inputs, each kernel alone (beside its previous version
+    where the build directory holds it) and through its wrapper, each
+    held bit-equal to the plain version first.  [4096, 16512]
+    (uhj_big_pool's 16-block window with the UHJ look-ahead) on a 268 MB
+    pool at pitch 2**U(-1,1), K4 and K3; at pitch 2**U(-1,-0.6), where
+    K5's largest bucket covers 16512 outputs, all three; K5 at the TPU
+    kernel's [4096, 1024] at that pitch; and K4 and K3 at the loaded
+    scene's [4096, 16384] on its 9.2 MB pool of 48 one-second tones."""
     import torch
 
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
@@ -709,6 +810,7 @@ def phase_timings(cuda, report: dict, smi: str) -> None:
               ("resample_span", "resample_gen")),
              ("pool268MB", 16 * BLOCK + 128, (-1.0, -0.6),
               ("resample_span", "resample_gen", "resample_voice")),
+             ("pool268MB", BLOCK, (-1.0, -0.6), ("resample_voice",)),
              ("pool9MB", 16 * BLOCK, (-1.0, 1.0),
               ("resample_span", "resample_gen")))
     for pool_name, W, pitch, names in cases:
@@ -730,41 +832,23 @@ def phase_timings(cuda, report: dict, smi: str) -> None:
                "nvidia_smi": smi}
         max_inc = int(inc.max())
         for name in names:
-            fn = fns[name]
-            if name == "resample_voice":
-                if not torch.equal(fn(*args, W, taps, bank_sl=sl), want):
-                    raise AssertionError(f"{name} != plain at the "
-                                         f"{pool_name} timing shape")
-                times = {"ms": cuda_ms(lambda: fn(*args, W, taps,
-                                                  bank_sl=sl), 20, 3)}
-            else:
-                times = time_window_kernel(name, args, W, taps, sl, max_inc,
-                                           want)
-                times["wrapper_ms"] = cuda_ms(lambda: fn(
-                    *args, W, taps, bank_sl=sl, max_inc=max_inc), 20, 3)
-                if name == "resample_span" and "parent_ms" in times:
-                    # the previous wrapper read max(increment) back from the
-                    # card before every launch
-                    old = window_launchers(name, args, W, taps, sl,
-                                           max_inc)["parent"]
-                    times["parent_host_read_ms"] = cuda_ms(
-                        lambda: (int(args[9].max()), old()), 20, 3)
-            ms = times["ms"]
+            times = time_window_kernel(name, args, W, taps, sl, max_inc,
+                                       want)
+            times["wrapper_ms"] = cuda_ms(lambda: fns[name](
+                *args, W, taps, bank_sl=sl, max_inc=max_inc), 20, 3)
             if name == "resample_gen":
                 bound_ms, bound_by = resample_bound(
                     N_VOICES, W, taps, args[0].numel(), 12, sl.numel())
             else:
                 bound_ms, bound_by = window_bound(N_VOICES, W, taps, frac,
                                                   inc, sl.numel())
-            row[name] = {**times, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "bound_share": bound_ms / ms,
-                         "write_GBps": {k: N_VOICES * W * 4 / (v * 1e-3)
-                                        / 1e9 for k, v in times.items()}}
+            row[name] = rates({"bound_ms": bound_ms, "bound_by": bound_by},
+                              times, 4 * N_VOICES * W, bound_ms)
             main = {"resample_span": pitch == (-1.0, 1.0)
                     and pool_name == "pool268MB",
-                    "resample_voice": True}.get(name, False)
+                    "resample_voice": W == 16 * BLOCK + 128}.get(name, False)
             if main:
-                report[name].update(ms=ms, plain_ms=plain_ms,
+                report[name].update(ms=times["ms"], plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by)
         emit(row)
         del args, want
@@ -868,14 +952,20 @@ def device_ms(fn, iters: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     dtime = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0.0)
-    return sum(dtime(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    for _ in range(3):   # a session may record no kernel: take another
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]
+                                    ) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(dtime(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        if ms > 0.0:
+            return ms
+    raise RuntimeError("torch.profiler recorded no device time in three "
+                       "sessions")
 
 
 def parent_kernel(name: str):
@@ -898,7 +988,8 @@ def ptxas_lines(name: str) -> list[str]:
     from openal_soft_tpu_torch.ops.kernels import _build
 
     return [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln
+            or "Function properties" in ln]
 
 
 def build_all() -> None:
@@ -913,6 +1004,97 @@ def build_all() -> None:
         _build.load_library(name)
         emit({"phase": "build", "kernel": name, "library": libs[name].name,
               "seconds": seconds, "ptxas": ptxas_lines(name)})
+
+
+def check_unit_kernel(cuda) -> float:
+    """Phase 3: resample_unit bit-equal to its plain version on unit_case's
+    voices (random weights), then over UNIT_CASES (the bank's weights)."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
+
+    rng = np.random.default_rng(0)
+    cases = ([(W, taps, "unit_case") for taps in (4, 24, 48)
+              for W in (128, 1024, 16384)] + list(UNIT_CASES))
+    max_err = 0.0
+    for W, taps, kind in cases:
+        if kind == "unit_case":
+            args = unit_case(rng, 256, W, taps, cuda)
+        else:
+            args = unit_window_case(rng, 256, W, taps, kind, cuda)
+        got = rs_unit.resample_unit(*args, W)
+        want = rs_unit.resample_unit_ref(*args, W)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        equal = bool(torch.equal(got, want))
+        emit({"phase": "kernel", "name": "resample_unit", "V": 256, "W": W,
+              "taps": taps, "kind": kind, "max_abs_err": err,
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"resample_unit != plain at W={W} "
+                                 f"taps={taps} ({kind}): max |diff| {err}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def phase_unit_timings(cuda, report: dict, smi: str, pool: np.ndarray
+                       ) -> None:
+    """Phase 4: resample_unit at [4096, 16384] and [4096, 1024], taps 4, on
+    best_case's 48 looping tones, each voice's weights at a random phase
+    and resampler row: the kernel alone beside the previous kernel (where
+    the build directory holds parent/resample_unit.cu), through its
+    wrapper, and its plain version; at 16384 also resample_gen (K3) on the
+    same voices at increment 1<<16, which computes the same function."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import tables
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import resample_unit as rs_unit
+
+    V, taps = N_VOICES, 4
+    rng = np.random.default_rng(4)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=cuda).to(torch.int32)
+    lens = np.full(V, RATE)
+    bank = {k: torch.tensor(v, device=cuda)
+            for k, v in tables.weight_bank().items()}
+    gargs = (torch.tensor(pool, device=cuda),
+             Ti(8 + (np.arange(V) % N_TONES) * RATE), Ti(lens),
+             Ti(np.zeros(V)), Ti(lens),
+             torch.ones(V, dtype=torch.bool, device=cuda),
+             torch.tensor(rng.random(V) < 0.5, device=cuda),
+             Ti(rng.integers(0, RATE, V)), Ti(rng.integers(0, 1 << 16, V)),
+             Ti(np.full(V, ONE)), Ti(rng.integers(0, 52, V)),
+             torch.tensor(rng.random(V).astype(np.float32), device=cuda),
+             bank)
+    args = (*gargs[:8], unit_weights(gargs, taps))
+    for W in (16 * BLOCK, BLOCK):
+        want = rs_unit.resample_unit_ref(*args, W)
+        got = rs_unit.resample_unit(*args, W)
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"resample_unit != plain at [{V}, {W}]: "
+                                 f"max |diff| {err}")
+        del got
+        times = time_alone("resample_unit", unit_launchers(args, W), want,
+                           f"[{V}, {W}]")
+        times["wrapper_ms"] = cuda_ms(
+            lambda: rs_unit.resample_unit(*args, W), 20, 3)
+        plain_ms = cuda_ms(lambda: rs_unit.resample_unit_ref(*args, W), 5, 1)
+        bound_ms, bound_by = resample_bound(V, W, taps, pool.size, 8,
+                                            V * taps)
+        row = {"phase": "timing", "name": "resample_unit", "V": V, "W": W,
+               "taps": taps, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "nvidia_smi": smi}
+        if W == 16 * BLOCK:
+            report["resample_unit"].update(ms=times["ms"], plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by)
+            sl = rs_gen.slice_bank(bank, taps)
+            k3 = time_window_kernel("resample_gen", gargs, W, taps, sl, ONE,
+                                    want)
+            row["resample_gen"] = rates({}, k3, 4 * V * W, bound_ms)
+        emit(rates(row, times, 4 * V * W, bound_ms))
+        del want
 
 
 def check_gen_kernel(cuda) -> float:
@@ -1158,9 +1340,10 @@ def phase_reverb_timings(cuda, report: dict, smi: str) -> None:
             if mode != "parent" or lib is not None:
                 times[key] = device_ms(run(mode), iters, 3)
         bound_ms, bound_by = reverb_bound(eff, W)
-        row = {"phase": "timing", "name": "reverb", "W": W,
-               "chunk": eff.chunk, **times, "bound_ms": bound_ms,
-               "bound_by": bound_by, "nvidia_smi": smi}
+        row = rates({"phase": "timing", "name": "reverb", "W": W,
+                     "chunk": eff.chunk, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "nvidia_smi": smi}, times,
+                    2 * 4 * 4 * W, bound_ms)   # early and late, [4, W]
         row["us_per_chunk"] = {k: 1e3 * v / (W // eff.chunk)
                                for k, v in times.items()}
         if W > BLOCK:
@@ -1291,9 +1474,10 @@ def phase_biquad_timings(cuda, report: dict, smi: str) -> None:
                         ("parent_ms_2", old)):
             if fn is not None:
                 times[key] = device_ms(fn, 50, 5)
-        row.update(times, chain_floor_ms=row["T"] * ns_per_sample * 1e-6,
+        row.update(chain_floor_ms=row["T"] * ns_per_sample * 1e-6,
                    nvidia_smi=smi)
-        emit({"phase": "timing", "name": "biquad", **row})
+        emit(rates({"phase": "timing", "name": "biquad", **row}, times,
+                   4 * row["paths"] * row["V"] * row["T"], row["bound_ms"]))
         return times
 
     rng = np.random.default_rng(6)
@@ -1474,57 +1658,14 @@ def main() -> int:
     build_all()
 
     # 3. the unit kernel against its plain version on the card
-    rng = np.random.default_rng(0)
-    max_err = 0.0
-    for taps in (4, 24, 48):
-        for W in (128, 1024, 16384):
-            args = unit_case(rng, 256, W, taps, cuda)
-            got = rs_unit.resample_unit(*args, W)
-            want = rs_unit.resample_unit_ref(*args, W)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            equal = bool(torch.equal(got, want))
-            emit({"phase": "kernel", "name": "resample_unit", "V": 256,
-                  "W": W, "taps": taps, "max_abs_err": err,
-                  "bit_equal": equal})
-            if not equal:
-                raise AssertionError(f"resample_unit != plain at W={W} "
-                                     f"taps={taps}: max |diff| {err}")
-            max_err = max(max_err, err)
+    report["resample_unit"]["max_abs_err"] = check_unit_kernel(cuda)
 
     # 4. timing at the main path's shape: V=4096, W=16*1024, taps=4, on
-    # best_case-like voices (48 looping one-second tones)
-    V, W, taps = N_VOICES, 16 * BLOCK, 4
-    lens = np.full(V, RATE)
+    # best_case-like voices (48 looping one-second tones), then at one
+    # block (W=1024)
     pool = np.concatenate([np.zeros(8, np.float32), *tone_pool(N_TONES),
                            np.zeros(4096, np.float32)])
-    Ti = lambda a: torch.tensor(np.asarray(a), device=cuda).to(torch.int32)
-    args = (torch.tensor(pool, device=cuda),
-            Ti(8 + (np.arange(V) % N_TONES) * RATE), Ti(lens),
-            Ti(np.zeros(V)), Ti(lens),
-            torch.ones(V, dtype=torch.bool, device=cuda),
-            torch.tensor(rng.random(V) < 0.5, device=cuda),
-            Ti(rng.integers(0, RATE, V)),
-            torch.tensor(rng.standard_normal((V, taps)).astype(np.float32),
-                         device=cuda))
-    got = rs_unit.resample_unit(*args, W)
-    want = rs_unit.resample_unit_ref(*args, W)
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"resample_unit != plain at the main shape: "
-                             f"max |diff| {err}")
-    max_err = max(max_err, err)
-    del got, want
-    ms = cuda_ms(lambda: rs_unit.resample_unit(*args, W), 20, 3)
-    plain_ms = cuda_ms(lambda: rs_unit.resample_unit_ref(*args, W), 20, 2)
-    bound_ms, bound_by = resample_bound(V, W, taps, pool.size, 8, V * taps)
-    report["resample_unit"].update(max_abs_err=max_err, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
-    emit({"phase": "timing", "name": "resample_unit", "V": V, "W": W,
-          "taps": taps, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "write_GBps": V * W * 4 / (ms * 1e-3) / 1e9, "nvidia_smi": smi})
-    del args
+    phase_unit_timings(cuda, report, smi, pool)
 
     # 5. best_case at full width through the port's entry points
     t0 = time.perf_counter()
@@ -1576,6 +1717,8 @@ def main() -> int:
     from openal_soft_tpu_torch.ops import tables
 
     rng = np.random.default_rng(3)
+    W, taps, lens = 16 * BLOCK, 4, np.full(N_VOICES, RATE)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=cuda).to(torch.int32)
     bank = {k: torch.tensor(v, device=cuda)
             for k, v in tables.weight_bank().items()}
     gargs = (torch.tensor(pool, device=cuda),
@@ -1604,17 +1747,14 @@ def main() -> int:
                        5, 1)
     bound_ms, bound_by = resample_bound(N_VOICES, W, taps, pool.size, 12,
                                         gsl.numel() + N_VOICES)
-    ms = times["ms"]
-    report["resample_gen"].update(ms=ms, plain_ms=plain_ms,
+    report["resample_gen"].update(ms=times["ms"], plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
-    emit({"phase": "timing", "name": "resample_gen", "V": N_VOICES, "W": W,
-          "taps": taps, "max_inc": max_inc, **times,
-          "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by,
-          "bound_share": bound_ms / ms,
-          "write_GBps": {k: N_VOICES * W * 4 / (v * 1e-3) / 1e9
-                         for k, v in times.items()},
-          "nvidia_smi": smi})
+    emit(rates({"phase": "timing", "name": "resample_gen", "V": N_VOICES,
+                "W": W, "taps": taps, "max_inc": max_inc,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "nvidia_smi": smi},
+               {**times, "wrapper_ms": wrapper_ms}, 4 * N_VOICES * W,
+               bound_ms))
     del gargs, gsl, want
     phase_reverb_timings(cuda, report, smi)
 
@@ -1739,7 +1879,7 @@ def main() -> int:
          for W, incs in ((128, (one // 4, 10 * one)),
                          (1024, (one // 4, 10 * one)),
                          (1152, (one // 4, 9 * one)),
-                         (16512, (one // 4, 42000)))])
+                         (16512, (one // 4, 42000)))] + VOICE_CASES)
     phase_timings(cuda, report, smi)
 
     # 19-20. uhj_big_pool at full width, then the UHJ parity scenes

@@ -1,8 +1,10 @@
 // The staged-window general-pitch resampler shared by csrc/resample_gen.cu
-// (K3) and csrc/resample_span.cu (K4), for NVIDIA Hopper (sm_90a).
+// (K3), csrc/resample_span.cu (K4) and csrc/resample_voice.cu (K5), for
+// NVIDIA Hopper (sm_90a); csrc/resample_unit.cu (K1) stages its windows
+// with the same plan_window and stage_window.
 //
-// Both compute ops/resample.py `resample_voices` at any increment, for
-// every tier:
+// K3, K4 and K5 compute ops/resample.py `resample_voices` at any
+// increment, for every tier:
 //
 //   total = pos_frac + t*inc (64-bit),  pos = pos_int + (total >> 16)
 //   phase = (total & 0xffff) >> 11,  pf = (total & 2047) / 2048
@@ -16,8 +18,9 @@
 // silence before frame 0 and for empty sources; pool reads clamp to
 // [0, pool_len - 1].
 //
-// A block owns one voice's tile of outputs (at most kTile = 8192, the tiles
-// of a row of equal length) and stages in shared memory:
+// A block owns one voice's tile of outputs (K3, K4: at most kTile = 8192,
+// the tiles of a row of equal length; K5: the whole row) and stages in
+// shared memory:
 //
 // 1. The voice's weight tables W0 and WD for all 32 phases x taps, once,
 //    in the plain version's roundings (ops/resample.py voice_weights), laid
@@ -62,8 +65,8 @@
 //
 // Exactness: products and sums are rounded one by one (__fmul_rn,
 // __fadd_rn) in the plain version's order, taps j = 0..taps-1 from 0.0f,
-// and each staged value is the one the plain version gathers, so both
-// kernels equal the plain torch version bit for bit.
+// and each staged value is the one the plain version gathers, so the
+// three kernels equal the plain torch version bit for bit.
 
 #pragma once
 
@@ -328,17 +331,16 @@ int launch_taps(const float* pool, long long pool_len, const int* meta,
 
 // Launch on `stream` with the taps unrolled for the tiers' tap counts;
 // returns a CUDA error code (0 on success).  cap: frames of the window
-// buffer, at least taps + 1.  A row is cut into tiles of equal length, at
-// most kTile outputs, in multiples of 256.
-inline int launch(const float* pool, long long pool_len, const int* meta,
-                  const float* sf, const float* bank, float* out, int V,
-                  int W, int taps, int cap, void* stream) {
-  if (V <= 0 || W <= 0 || taps <= 0 || pool_len <= 0 || cap < taps + 1) {
+// buffer, at least taps + 1; tile: outputs per block (K3, K4: tile_for(W);
+// K5: W, one block per voice).
+inline int launch_tiles(const float* pool, long long pool_len,
+                        const int* meta, const float* sf, const float* bank,
+                        float* out, int V, int W, int taps, int cap, int tile,
+                        void* stream) {
+  if (V <= 0 || W <= 0 || taps <= 0 || pool_len <= 0 || cap < taps + 1
+      || tile <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tiles = (W + kTile - 1) / kTile;
-  const int tile =
-      ((W + tiles - 1) / tiles + kThreads - 1) / kThreads * kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (taps) {
     case 1: return launch_taps<1>(pool, pool_len, meta, sf, bank, out, V, W,
@@ -356,6 +358,22 @@ inline int launch(const float* pool, long long pool_len, const int* meta,
     default: return launch_taps<0>(pool, pool_len, meta, sf, bank, out, V, W,
                                    taps, cap, tile, s);
   }
+}
+
+// A row cut into tiles of equal length, at most kTile outputs, in
+// multiples of 256 (K3, K4; K1 tiles its rows the same way).
+inline int tile_for(int W) {
+  const int tiles = (W + kTile - 1) / kTile;
+  return ((W + tiles - 1) / tiles + kThreads - 1) / kThreads * kThreads;
+}
+
+// K3 and K4: tiles of tile_for(W) outputs.
+inline int launch(const float* pool, long long pool_len, const int* meta,
+                  const float* sf, const float* bank, float* out, int V,
+                  int W, int taps, int cap, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tiles(pool, pool_len, meta, sf, bank, out, V, W, taps, cap,
+                      tile_for(W), stream);
 }
 
 }  // namespace rsw

@@ -11,8 +11,9 @@ builds that slice once per tap count.  On the card there is no fallback:
 the kernel launches or the wrapper raises.  ``resample_gen.launches``
 counts kernel launches.
 
-This module also holds what K3 and K4 (``resample_span``) share, as their
-kernels share ``csrc/resample_window.cuh``: the meta layout, the bank
+This module also holds what K3, K4 (``resample_span``) and K5
+(``resample_voice``) share, as their kernels share
+``csrc/resample_window.cuh``: the meta layout, the bank
 slice, and the size of a staged source window.  A window buffer holds
 ``window_frames(max_inc, taps)`` frames, the frames of ``TILE`` outputs at
 the call's largest increment (``MAX_INC`` at most: the kernels cut a
@@ -67,7 +68,7 @@ def launch_window_kernel(name: str, fn, pool, src_off, src_len, loop_start,
                          loop_end, has_loop, has_wrapped, pos_int, pos_frac,
                          increment, bank_row, sf, bank: dict, n: int,
                          taps: int, bank_sl, max_inc):
-    """Check the inputs of a staged-window kernel (K3, K4), size its
+    """Check the inputs of a staged-window kernel (K3, K4, K5), size its
     window and launch ``fn`` (the C entry point) on the pool's device:
     [V, n] f32."""
     if not 1 <= taps <= RESAMPLE_TAPS:

@@ -14,8 +14,12 @@ length and any number of seams inside the window is exact.
 ``resample_unit`` takes a CPU tensor to ``resample_unit_ref`` and a CUDA
 tensor to the kernel in ``csrc/resample_unit.cu`` (which replaces the TPU
 kernels ``openal_soft_tpu/ops/pallas/resample_unit.py`` ``_kernel_shared``
-and ``_kernel``).  On the card there is no fallback: the kernel launches or
-the wrapper raises.  ``resample_unit.launches`` counts kernel launches.
+and ``_kernel``): each block stages a tile's resolved source frames in
+shared memory, ``WINDOW`` outputs' worth at a time, with the staging of
+K3, K4 and K5 (``csrc/resample_window.cuh``), and keeps the voice's
+weights in registers.  On the card there is no fallback: the kernel
+launches or the wrapper raises.  ``resample_unit.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from .. import resample as rs_ops
 from ._build import check_tensor, load_library
 
 _PHASE_SHIFT = MIXER_FRAC_BITS - 5
+WINDOW = 4096                # outputs per staged window (kWindow in the .cu)
 _PHASE_SUB_MASK = (1 << _PHASE_SHIFT) - 1
 _PHASE_SUB_SCALE = 1.0 / (1 << _PHASE_SHIFT)
 
@@ -52,6 +57,15 @@ def unit_weights_np(bank, bank_row, sf, pos_frac, taps: int):
     w0 = sel("fil") + sfc * sel("scd")
     wd = sel("phd") + sfc * sel("spd")
     return (w0 + pf[:, None] * wd).astype(np.float32)
+
+
+def smem_bytes(taps: int) -> int:
+    """A block's shared memory: the window buffer of WINDOW + taps - 1
+    frames with 3 floats of slack, rounded up to 16 bytes, and for a tap
+    count the kernel does not unroll (1, 2, 4, 12, 24, 48) the weight row
+    (csrc/resample_unit.cu launch_unit)."""
+    row = 0 if taps in (1, 2, 4, 12, 24, 48) else (taps + 3) & ~3
+    return 4 * (row + ((WINDOW + taps - 1 + 6) & ~3))
 
 
 def resample_unit_ref(pool, src_off, src_len, loop_start, loop_end,
@@ -86,14 +100,19 @@ def pack_meta(src_off, src_len, loop_start, loop_end, has_loop, has_wrapped,
     return torch.stack([c.to(torch.int32) for c in cols], dim=1).contiguous()
 
 
-def _launcher():
-    """The C entry point, built on first use, with its ctypes signature."""
-    fn = load_library("resample_unit").resample_unit_launch
+def bind_unit_launch(fn):
+    """``fn`` (the kernel's C entry point) with its ctypes signature: pool,
+    pool_len, meta, weights, out, V, W, taps, stream."""
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launcher():
+    """The C entry point, built on first use, with its ctypes signature."""
+    return bind_unit_launch(load_library("resample_unit").resample_unit_launch)
 
 
 def resample_unit(pool, src_off, src_len, loop_start, loop_end, has_loop,

@@ -39,6 +39,15 @@ def test_both_resamplers_include_the_shared_window_header():
             _build.SRC_DIR / f"{name}.cu") == [hdr]
 
 
+def test_unit_and_voice_resamplers_include_the_shared_window_header():
+    """K1 stages its windows with the header's plan and staging, and K5 is
+    its window kernel behind a third entry point."""
+    hdr = (_build.SRC_DIR / "resample_window.cuh").resolve()
+    for name in ("resample_unit", "resample_voice"):
+        assert _build.included_headers(
+            _build.SRC_DIR / f"{name}.cu") == [hdr]
+
+
 def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
     """build() passes -I csrc/ to nvcc, reuses a library whose source and
     headers are unchanged, and compiles anew after a header edit."""

@@ -30,16 +30,34 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("taps", [4, 24, 48])
-@pytest.mark.parametrize("W", [128, 1024, 16384])
-def test_unit_kernel_equals_plain_version(cuda, taps, W):
-    args = chip_smoke.unit_case(np.random.default_rng(taps * W), 256, W,
-                                taps, cuda)
+@pytest.mark.parametrize(
+    "W,taps,kind",
+    [(W, taps, "unit_case") for taps in (4, 24, 48) for W in (128, 1024, 16384)]
+    + list(chip_smoke.UNIT_CASES))
+def test_unit_kernel_equals_plain_version(cuda, W, taps, kind):
+    """K1 on unit_case's branch cases (random weights), then at ragged
+    widths with buffers at the pool's end and over loops of 1-3 frames
+    (the bank's weights)."""
+    rng = np.random.default_rng(taps * W)
+    if kind == "unit_case":
+        args = chip_smoke.unit_case(rng, 256, W, taps, cuda)
+    else:
+        args = chip_smoke.unit_window_case(rng, 256, W, taps, kind, cuda)
     before = t_unit.resample_unit.launches
     got = t_unit.resample_unit(*args, W)
     torch.cuda.synchronize()
     assert t_unit.resample_unit.launches == before + 1
     assert torch.equal(got, t_unit.resample_unit_ref(*args, W))
+
+
+@pytest.mark.parametrize("W", [1023, 16385])
+def test_unit_kernel_equals_general_kernel_at_unit_increment(cuda, W):
+    """K1 and K3 compute the same function at increment 1<<16 with the
+    unit weights: their outputs are equal bit for bit."""
+    gen = chip_smoke.span_case(np.random.default_rng(W), 256, W, 4,
+                               (ONE, ONE), cuda)
+    unit = t_unit.resample_unit(*gen[:8], chip_smoke.unit_weights(gen, 4), W)
+    assert torch.equal(unit, t_gen.resample_gen(*gen, W, 4))
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -60,6 +78,7 @@ def test_port_on_the_card_matches_the_cpu(cuda):
     assert t_unit.resample_unit.launches > before
 
 
+ONE = 1 << 16
 # chip_smoke.WINDOW_CASES as (W, taps, increments, kind): ragged widths,
 # taps 48 at 10x, loops of 1-3 frames.
 WINDOW_CASES = [c[1:] for c in chip_smoke.WINDOW_CASES]
@@ -199,9 +218,6 @@ def test_filtered_scene_on_the_card_matches_the_cpu(cuda, scene):
     assert t_biq.biquad_dual.launches > before
 
 
-ONE = 1 << 16
-
-
 @pytest.mark.parametrize(
     "W,taps,incs,kind",
     [(W, taps, (ONE // 4, 10 * ONE), "span_case") for W in (128, 1152, 16512)
@@ -222,13 +238,16 @@ def test_span_kernel_equals_plain_version(cuda, W, taps, incs, kind):
     assert torch.equal(got, t_span.resample_span_ref(*args, W, taps))
 
 
-@pytest.mark.parametrize("taps", [1, 4, 48])
-@pytest.mark.parametrize("W,top", [(1024, 10 * ONE), (16512, 42000)])
-def test_voice_kernel_equals_plain_version(cuda, taps, W, top):
-    """K5 with its largest windows (two 45 KB windows need the shared
-    memory opt-in) and loops shorter than the window."""
-    args = chip_smoke.span_case(np.random.default_rng(taps + W), 256, W,
-                                taps, (ONE // 4, top), cuda)
+@pytest.mark.parametrize(
+    "W,taps,incs,kind",
+    [(W, taps, (ONE // 4, top), "branches") for taps in (1, 4, 48)
+     for W, top in ((1024, 10 * ONE), (16512, 42000))]
+    + [c[1:] for c in chip_smoke.VOICE_CASES])
+def test_voice_kernel_equals_plain_version(cuda, W, taps, incs, kind):
+    """K5 up to its largest bucket (one block per voice through a row of
+    16512 outputs), ragged widths, taps 48 at 10x and loops of 1-3
+    frames."""
+    args = _window_case(W, taps, incs, kind, cuda)
     before = t_voice.resample_voice.launches
     got = t_voice.resample_voice(*args, W, taps)
     torch.cuda.synchronize()

@@ -280,6 +280,33 @@ def test_positions_are_exact_past_int32():
     assert pi.dtype == pf.dtype == torch.int32
 
 
+def _staged_frames(pool, off: int, length: int, ls: int, le: int,
+                   loop: bool, wrapped: bool, s0: int,
+                   span: int) -> tuple[torch.Tensor, int]:
+    """What csrc/resample_window.cuh stage_window writes for the frames
+    s0 .. s0 + span - 1 of one voice: run A from a = resolve(s0) (up to
+    loop_end, or the last frame), then the loop's frames one by one
+    (d - n1) mod loop_len or the end clamp, silence staged as 0.  Returns
+    the window and its pool address g = off + a, whose alignment g & 3 is
+    where frame 0 sits in the buffer."""
+    P = pool.numel()
+    L = max(le - ls, 1)
+    last = max(length - 1, 0)
+    a = s0
+    if loop:
+        if s0 >= le or (wrapped and s0 < ls):
+            a = (s0 - ls) % L + ls
+        n1 = le - a
+    else:
+        n1 = last - s0 + 1
+    n1 = min(max(n1, 0), span)
+    d = torch.arange(span)
+    tail = ls + (d - n1) % L if loop else torch.full_like(d, last)
+    idx = torch.where(d < n1, a + d, tail)
+    valid = (s0 + d >= 0) & (length > 0)
+    return torch.where(valid, pool[(off + idx).clamp(0, P - 1)], 0.0), off + a
+
+
 def _staged_window_model(args, n: int, taps: int, cap: int,
                          tile: int) -> torch.Tensor:
     """Plain torch model of what the staged-window kernels (K3, K4,
@@ -293,7 +320,6 @@ def _staged_window_model(args, n: int, taps: int, cap: int,
     the tables in the plain version's order."""
     (pool, off, lens, ls, le, loop, wrapped, pos_int, frac, inc, row, sf,
      bank) = args
-    P = pool.numel()
     lo = 24 - taps // 2
     center = taps // 2 - 1
     out = torch.empty((off.shape[0], n), dtype=torch.float32)
@@ -301,8 +327,8 @@ def _staged_window_model(args, n: int, taps: int, cap: int,
         sel = {k: bank[k][int(row[v]), :, lo:lo + taps] for k in bank}
         w0 = (sel["fil"] + sf[v] * sel["scd"]).T.contiguous()    # [taps, 32]
         wd = (sel["phd"] + sf[v] * sel["spd"]).T.contiguous()
-        L = max(int(le[v]) - int(ls[v]), 1)
-        last = max(int(lens[v]) - 1, 0)
+        voice = (int(off[v]), int(lens[v]), int(ls[v]), int(le[v]),
+                 bool(loop[v]), bool(wrapped[v]))
         f0, dinc = int(frac[v]), int(inc[v])
         for t0 in range(0, n, tile):
             n_tile = min(tile, n - t0)
@@ -315,24 +341,8 @@ def _staged_window_model(args, n: int, taps: int, cap: int,
                 base = (f0 + t * dinc) >> 16
                 span = ((f0 + (t + m - 1) * dinc) >> 16) - base + taps
                 s0 = int(pos_int[v]) + base - center
-                a = s0
-                if bool(loop[v]):
-                    if s0 >= int(le[v]) or (bool(wrapped[v])
-                                            and s0 < int(ls[v])):
-                        a = (s0 - int(ls[v])) % L + int(ls[v])
-                    n1 = int(le[v]) - a
-                else:
-                    n1 = last - s0 + 1
-                n1 = min(max(n1, 0), span)
-                g = int(off[v]) + a
+                win, g = _staged_frames(pool, *voice, s0, span)
                 assert (g & 3) + span <= (cap + 6) & ~3   # the buffer
-                d = torch.arange(span)
-                tail = (int(ls[v]) + (d - n1) % L if bool(loop[v])
-                        else torch.full_like(d, last))
-                idx = torch.where(d < n1, a + d, tail)
-                valid = (s0 + d >= 0) & (int(lens[v]) > 0)
-                win = torch.where(valid, pool[(int(off[v]) + idx).clamp(
-                    0, P - 1)], 0.0)
                 total = f0 + torch.arange(t, t + m, dtype=torch.int64) * dinc
                 rel = (total >> 16) - base
                 fr = total & 0xFFFF
@@ -387,3 +397,115 @@ def test_staged_window_shared_memory_fits():
             assert t_gen.smem_bytes(cap, taps) <= t_gen.SMEM_LIMIT
     assert t_gen.smem_bytes(t_gen.window_cap(None, 48), 48) == 4 * (
         2 * 32 * 48 + 10284)
+
+
+def _unit_window_model(args, n: int, tile: int, window: int) -> torch.Tensor:
+    """Plain torch model of the unit kernel (K1, csrc/resample_unit.cu),
+    block by block: per tile of ``tile`` outputs, windows of equal length,
+    at most ``window`` outputs each; per window the frames pos_int + t -
+    center .. + m + taps - 2 staged as stage_window stages them (the plan
+    at increment 1<<16 and phase 0); each output t + k sums w[j] *
+    win[k + j] over j = 0..taps-1 from 0.0, the weights (in the kernel's
+    registers) constant per voice."""
+    pool, off, lens, ls, le, loop, wrapped, pos_int, weights = args
+    taps = weights.shape[1]
+    center = taps // 2 - 1
+    out = torch.empty((off.shape[0], n), dtype=torch.float32)
+    for v in range(off.shape[0]):
+        voice = (int(off[v]), int(lens[v]), int(ls[v]), int(le[v]),
+                 bool(loop[v]), bool(wrapped[v]))
+        for t0 in range(0, n, tile):
+            n_tile = min(tile, n - t0)
+            nwin = -(-n_tile // window)
+            n_w = -(-n_tile // nwin)
+            for i in range(nwin):
+                t = t0 + i * n_w
+                m = min(n_w, n_tile - i * n_w)
+                win, g = _staged_frames(pool, *voice,
+                                        int(pos_int[v]) + t - center,
+                                        m + taps - 1)
+                # the buffer: WINDOW + taps - 1 frames and 3 of slack
+                assert (g & 3) + m + taps - 1 <= (window + taps + 5) & ~3
+                acc = torch.zeros(m, dtype=torch.float32)
+                for j in range(taps):
+                    acc = acc + weights[v, j] * win[j:j + m]
+                out[v, t:t + m] = acc
+    return out
+
+
+def _tile_for(W: int) -> int:
+    """csrc/resample_window.cuh tile_for: a row's tiles of equal length,
+    at most 8192 outputs, in multiples of 256."""
+    tiles = -(-W // 8192)
+    return -(-(-(-W // tiles)) // 256) * 256
+
+
+@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("taps", [1, 4, 48])
+def test_unit_window_model_equals_plain_versions(kind, taps):
+    """What the unit kernel stages and computes (tiles, windows of equal
+    length, resolved frames, register weights in the kernel's order)
+    gives resample_unit_ref, and resample_voices at unit increment, bit
+    for bit: over chip_smoke's branch cases (loop seams, short loops,
+    backward wraps, end clamps, pre-start silence, empty sources, buffers
+    at the pool's end) or loops of 1-3 frames, at ragged widths; with the
+    kernel's window and tile, and with short ones (several windows and
+    tiles per row)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(31 + taps)
+    for V, W in ((64, 1), (64, 100), (32, 1023), (16, 2048)):
+        gen = (chip_smoke.short_loop_case if kind == "short_loops"
+               else chip_smoke.span_case)(rng, V, W, taps,
+                                          (MIXER_FRAC_ONE, MIXER_FRAC_ONE),
+                                          "cpu")
+        args = (*gen[:8], chip_smoke.unit_weights(gen, taps))
+        want = t_unit.resample_unit_ref(*args, W)
+        assert torch.equal(want, t_rs.resample_voices(*gen, W, taps))
+        for tile, window in ((_tile_for(W), t_unit.WINDOW), (256, 100)):
+            got = _unit_window_model(args, W, tile, window)
+            assert torch.equal(got, want), (V, W, tile, window)
+
+
+@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("taps", [1, 4, 48])
+def test_voice_schedule_model_equals_plain_version(kind, taps):
+    """K5's schedule (one tile per row, whatever its length, cut into
+    windows that fit the buffer sized for the call's largest increment)
+    gives resample_voices bit for bit at ragged widths and 0.25x-10x,
+    within the wrapper's largest bucket."""
+    import chip_smoke
+
+    make = (chip_smoke.short_loop_case if kind == "short_loops"
+            else chip_smoke.span_case)
+    rng = np.random.default_rng(41 + taps)
+    for V, W in ((64, 1), (64, 100), (16, 1023)):
+        args = make(rng, V, W, taps, (MIXER_FRAC_ONE // 4,
+                                      10 * MIXER_FRAC_ONE), "cpu")
+        top = int(args[9].max())
+        t_voice.span_for_increment(top, W)          # within the buckets
+        want = t_voice.resample_voice(*args, W, taps)
+        assert torch.equal(want, t_rs.resample_voices(*args, W, taps))
+        cap = t_gen.window_cap(top, taps)
+        assert torch.equal(_staged_window_model(args, W, taps, cap, W), want)
+
+
+def test_unit_and_voice_shared_memory_fits():
+    """K1's block (its window buffer, and the weight row for a tap count
+    it does not unroll) needs no shared-memory opt-in at any tap count,
+    and eight blocks fit an SM's 228 KB (1 KB of each block reserved) for
+    the tap counts it runs eight blocks of; K5's largest window (taps 48
+    at the largest increment) fits a block, and at its timing shape
+    (taps 4, pitch 2**-0.6) eight blocks fit an SM."""
+    sm = 228 * 1024
+    for taps in range(1, 49):
+        assert t_unit.smem_bytes(taps) <= 48 * 1024
+        if taps <= 12:
+            assert 8 * (t_unit.smem_bytes(taps) + 1024) <= sm
+    assert t_unit.smem_bytes(4) == 4 * (4096 + 3 + 5)
+    top = t_gen.window_cap(None, 48)
+    for n in (1, 1024):
+        t_voice.span_for_increment(t_gen.MAX_INC, n)
+    assert t_gen.smem_bytes(top, 48) <= t_gen.SMEM_LIMIT
+    inc = int(2 ** -0.6 * MIXER_FRAC_ONE)
+    assert 8 * (t_gen.smem_bytes(t_gen.window_cap(inc, 4), 4) + 1024) <= sm
