@@ -105,15 +105,42 @@ result:
                 decoder and FIR512 encoder, and UHJ2 and Super Stereo
                 voices at the FIR512 decoder and FIR256 encoder
 
+ 21. kernel     effect_scan against its plain version: each entry at T 128,
+                1024 and 16384 and B 1, 4 and 9, the compressor on and off,
+                the autowah's attack above and below its release, swept
+                coefficients crossing the 0.46 clamp of w0, state carried
+                over two calls: bit-equal required
+ 22. kernel     biquad in the effects' shapes: the equalizer's four-section
+                cascade at B 4 and 9, one section beside an identity
+                section at 4T = 4096: bit-equal required
+ 23. timing     effect_scan's entries alone (CUDA events, beside
+                parent/effect_scan.cu where the build directory holds it)
+                and through their wrappers at B 4 and 9, T 1024 and 16384,
+                with the chain floor; the plain versions at T 1024
+ 24. fx_rack    a game's EFX zones on 5.1 speakers: 4096 looping voices at
+                pitch 2**U(-1,1), 15 slots (every engine of the registry
+                but null and reverb), send 0 of voice v to engine v mod
+                14, send 1 to the EAXReverb slot (an order-2 decoder); one
+                warm and one timed 512-block call, device operations per
+                block; finite, nonzero, FC and LFE nonzero; effect_scan,
+                resample_gen, reverb and biquad must launch
+ 25. parity     each engine at 64 voices on the card against the CPU on
+                stereo, the dedicated engines also on surround51, the
+                equalizer, echo and pitch shifter on HRTF (the fused
+                branch), 8192 and 4096 frames: <= 1e-4 (1e-3 with the
+                pitch shifter)
+
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits non-zero at
 once when torch.cuda.is_available() is false.
 
-    python3 chip_smoke.py --profile best_case|loaded|speakers_filtered|uhj_big_pool
+    python3 chip_smoke.py --profile best_case|loaded|speakers_filtered|uhj_big_pool|fx_rack
 
 instead builds the kernels and profiles one warm 512-block call of the
-scene at full width with torch.profiler (device time by kernel and by op).
+scene at full width with torch.profiler (device time by kernel and by op;
+fx_rack's profile records 16 blocks after an unprofiled 512-block call).
+``--seed N`` (default 0) seeds fx_rack's voices and its convolution IR.
 """
 
 from __future__ import annotations
@@ -142,8 +169,10 @@ SPEAKERS_TOL = 1e-4        # filtered scenes with a slot, as LOADED_TOL
 UHJ_TOL = 1e-4             # UHJ scenes: the IIR all-passes feed back
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+FX_TOL = 1e-4              # effect parity, the engines' golden budget
+FX_PSHIFT_TOL = 1e-3       # the pitch shifter's bin pick can flip
 KERNELS = ("resample_unit", "resample_gen", "reverb", "biquad",
-           "resample_span", "resample_voice")
+           "resample_span", "resample_voice", "effect_scan")
 REPLACES = {
     "resample_unit": "openal_soft_tpu/ops/pallas/resample_unit.py:284",
     "resample_gen": "openal_soft_tpu/ops/pallas/resample3.py:113",
@@ -151,7 +180,27 @@ REPLACES = {
     "biquad": "openal_soft_tpu/ops/pallas/biquad.py:35",
     "resample_span": "openal_soft_tpu/ops/pallas/resample2.py:93",
     "resample_voice": "openal_soft_tpu/ops/pallas/resample.py:62",
+    "effect_scan": "no TPU kernel: the lax.scan recurrences of "
+                   "openal_soft_tpu/effects/compressor.py:49 and "
+                   "autowah.py:55,77",
 }
+
+
+class EffectScanCount:
+    """effect_scan's launch count: the sum of its three entries' counts
+    (``ops/kernels/effect_scan.py``); setting it to 0 resets all three."""
+
+    @property
+    def launches(self) -> int:
+        from openal_soft_tpu_torch.ops.kernels import effect_scan as es
+        return es.launches()
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        from openal_soft_tpu_torch.ops.kernels import effect_scan as es
+        if value != 0:
+            raise ValueError("the count can only be reset to 0")
+        es.reset_launches()
 
 
 def emit(obj: dict) -> None:
@@ -1533,6 +1582,498 @@ def phase_biquad_timings(cuda, report: dict, smi: str) -> None:
                               cnt)) if lib is not None else None)
 
 
+# --- the effect engines (phases 21-25) ----------------------------------------
+
+# fx_rack's engines and their properties: one slot per engine name in the
+# port's registry except null and reverb (the 14 engines of this slice and
+# eaxreverb).
+FX_PROPS = {
+    "autowah": {}, "chorus": {}, "compressor": {}, "convolution": {},
+    "dedicated_dialog": {}, "dedicated_lfe": {}, "distortion": {},
+    "echo": {"delay": 0.05, "lr_delay": 0.03},
+    "equalizer": {"low_gain": 2.0, "mid1_gain": 0.5, "high_gain": 1.5},
+    "flanger": {}, "frequency_shifter": {"frequency": 250.0,
+                                         "right_direction": 1},
+    "pitch_shifter": {"coarse_tune": 7}, "ring_modulator": {},
+    "vocal_morpher": {"phoneme_b": 4},
+}
+FX_ENGINES = tuple(FX_PROPS)
+# The engines whose kernels a parity scene must launch.
+FX_KERNELS = {"equalizer": "biquad", "distortion": "biquad",
+              "ring_modulator": "biquad", "echo": "biquad",
+              "compressor": "effect_scan", "autowah": "effect_scan"}
+
+
+def conv_ir(seed: int) -> np.ndarray:
+    """The convolution slot's impulse response: one second of decaying
+    noise at 48 kHz, mono, made from the seed."""
+    rng = np.random.default_rng(seed + 1)
+    t = np.arange(RATE) / RATE
+    return (rng.standard_normal(RATE) * np.exp(-t * 6.0) * 0.3).astype(
+        np.float32)
+
+
+def fx_rack_scene(n_voices: int, device: str, seed: int,
+                  engines=FX_ENGINES, reverb: bool = True,
+                  channels: str = "surround51", hrtf: bool = False):
+    """fx_rack: n_voices looping mono voices at pitch 2**U(-1,1) over the
+    48 tones, positions x3.0; a slot per engine, send 0 of voice v to
+    engine slot v mod len(engines), and with ``reverb`` send 1 of every
+    voice to an EAXReverb slot.  48 kHz float32, 2 aux sends."""
+    from openal_soft_tpu_torch.alc.device import LoopbackDevice
+
+    dev = LoopbackDevice(frequency=RATE, channels=channels,
+                         sample_type="float32", capacity=n_voices,
+                         hrtf=hrtf, num_aux_sends=2, device=device)
+    ctx = dev.create_context()
+    slots = []
+    for name in engines:
+        slot = ctx.create_aux_slot()
+        eff = ctx.create_effect(name)
+        for k, v in FX_PROPS[name].items():
+            eff.set(k, v)
+        slot.set_effect(eff)
+        if name == "convolution":
+            ir = ctx.create_buffer()
+            ir.set_data(conv_ir(seed), "mono", "float32", RATE)
+            slot.set_buffer(ir)
+        slots.append(slot)
+    rev = None
+    if reverb:
+        rev = ctx.create_aux_slot()
+        rev.set_effect(ctx.create_effect("eaxreverb"))
+    rng = np.random.default_rng(seed)
+    bufs = []
+    for tone in tone_pool(N_TONES):
+        buf = ctx.create_buffer()
+        buf.set_data(tone, "mono", "float32", RATE)
+        bufs.append(buf)
+    for i in range(n_voices):
+        src = ctx.create_source()
+        src.buffer(bufs[i % N_TONES])
+        src.looping = True
+        src.set("position", tuple(rng.standard_normal(3) * 3.0))
+        src.set("pitch", float(2.0 ** rng.uniform(-1, 1)))
+        src.send(slots[i % len(slots)], 0)
+        if rev is not None:
+            src.send(rev, 1)
+        src.play()
+    return dev
+
+
+def scan_inputs(rng, B: int, T: int, device):
+    """A wet line per row, its level sweeping 0.05..1.5 (so that the
+    envelopes rise and fall and the swept filter's w0 reaches its clamp)."""
+    import torch
+
+    level = np.linspace(0.05, 1.5, T) * (1.0 + 0.5 * np.sin(
+        np.arange(T) * (2 * np.pi / max(T // 3, 1))))
+    x = rng.standard_normal((B, T)) * level
+    return torch.tensor(x.astype(np.float32), device=device)
+
+
+def swept_coeffs(envs, bandwidth: float = 0.5, fmin: float = 20.0 / RATE,
+                 rg: float = 1.6):
+    """The autowah's per-sample normalised coefficients [5, T] from its
+    envelopes, computed by torch as effects/autowah.py computes them."""
+    import torch
+
+    w0 = torch.clamp(bandwidth * envs + fmin, max=0.46) * (2.0 * np.pi)
+    cos_w0, alpha = torch.cos(w0), torch.sin(w0) * 0.1
+    a0r = 1.0 / (1.0 + alpha / rg)
+    b1 = -2.0 * cos_w0
+    return torch.stack([(1.0 + alpha * rg) * a0r, b1 * a0r,
+                        (1.0 - alpha * rg) * a0r, b1 * a0r,
+                        (1.0 - alpha / rg) * a0r]).contiguous()
+
+
+def check_effect_scan(cuda) -> float:
+    """Phase 21: every effect_scan entry bit-equal to its plain version,
+    outputs and carried state over two calls: T 128, 1024 and 16384; B 1,
+    4 and 9; the compressor on and off; the autowah's attack above and
+    below its release; swept coefficients whose w0 crosses its 0.46
+    clamp."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import effect_scan as es
+
+    rng = np.random.default_rng(12)
+    am = np.float32(4.0 ** (1.0 / (RATE * 0.1)))
+    rm = np.float32(0.25 ** (1.0 / (RATE * 0.2)))
+
+    def record(row, got, want):
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        emit({"phase": "kernel", "name": "effect_scan", **row, "calls": 2,
+              "max_abs_err": err, "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"effect_scan != plain at {row}: {err}")
+        return err
+
+    def two_calls(fn, ref, xs, state):
+        got = want = (None, state)
+        outs_g, outs_w = [], []
+        for x in xs:
+            got = fn(x, got[1])
+            want = ref(x, want[1])
+            outs_g.append(got[0])
+            outs_w.append(want[0])
+        torch.cuda.synchronize()
+        return outs_g + [got[1]], outs_w + [want[1]]
+
+    max_err = 0.0
+    for T in (128, 1024, 16384):
+        for B in (1, 4, 9):
+            xs = [scan_inputs(rng, B, T, cuda) for _ in range(2)]
+            env0 = torch.tensor(rng.uniform(0.5, 2.0, B).astype(np.float32),
+                                device=cuda)
+            prm = torch.tensor([am, rm], device=cuda)
+            for on in (True, False):
+                amps = [x.abs().clamp(0.5, 2.0) if on else torch.ones_like(x)
+                        for x in xs]
+                g, w = two_calls(lambda a, e: es.compressor_env(a, e, prm),
+                                 lambda a, e: es.compressor_env_ref(a, e, prm),
+                                 amps, env0)
+                max_err = max(max_err, record(
+                    {"entry": "compressor_env", "B": B, "T": T,
+                     "compressor_on": on}, g, w))
+            for att, rel in ((0.9995, 0.995), (0.995, 0.9995)):
+                prm = torch.tensor([1.3, att, rel], dtype=torch.float32,
+                                   device=cuda)
+                g, w = two_calls(lambda x, e: es.autowah_env(x, e, prm),
+                                 lambda x, e: es.autowah_env_ref(x, e, prm),
+                                 xs, torch.zeros(B, device=cuda))
+                max_err = max(max_err, record(
+                    {"entry": "autowah_env", "B": B, "T": T,
+                     "attack_above_release": att > rel}, g, w))
+            envs = [es.autowah_env_ref(x[:1], torch.zeros(1, device=cuda),
+                                       prm)[0][0] for x in xs]
+            cfs = [swept_coeffs(e) for e in envs]
+            clamped = int(sum(int((0.5 * e + 20.0 / RATE >= 0.46).sum())
+                              for e in envs))
+            got = want = (None, torch.zeros((B, 2), device=cuda))
+            outs = ([], [])
+            for x, cf in zip(xs, cfs):
+                got = es.swept_tdf2(x, cf, got[1])
+                want = es.swept_tdf2_ref(x, cf, want[1])
+                outs[0].append(got[0])
+                outs[1].append(want[0])
+            torch.cuda.synchronize()
+            max_err = max(max_err, record(
+                {"entry": "swept_tdf2", "B": B, "T": T,
+                 "samples_at_clamp": clamped},
+                outs[0] + [got[1]], outs[1] + [want[1]]))
+            if T >= 1024 and clamped == 0:
+                raise AssertionError("the swept case never reached the "
+                                     "0.46 clamp")
+    return max_err
+
+
+def check_biquad_effect_shapes(cuda) -> float:
+    """Phase 22: the biquad kernel in the effects' shapes, bit-equal to its
+    plain version over two calls: the equalizer's four-section constant
+    cascade at B 4 and 9 (T 1024), and one section beside an identity
+    section at 4T = 4096 (the distortion's oversampled lines)."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import spec
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    rng = np.random.default_rng(13)
+    eq = np.stack([spec.biquad_set_params(k, np.float32(f), np.float32(g),
+                                          np.float32(q))
+                   for k, f, g, q in (("lowshelf", 0.004, 1.41, 0.9),
+                                      ("peaking", 0.0146, 0.63, 1.2),
+                                      ("peaking", 0.0625, 1.2, 1.0),
+                                      ("highshelf", 0.125, 1.22, 0.9))])
+    lp = spec.biquad_set_params("lowpass", np.float32(0.03), np.float32(1.0),
+                                np.float32(0.8))
+    ident = np.array([1.0, 0.0, 0.0, 0.0, 0.0], np.float32)
+    max_err = 0.0
+    for label, B, T, cf in (("equalizer", 4, BLOCK, eq),
+                            ("equalizer", 9, BLOCK, eq),
+                            ("identity_padded", 4, 4 * BLOCK,
+                             np.stack([lp, ident]))):
+        S = cf.shape[0]
+        cft = torch.tensor(np.broadcast_to(cf, (B, S, 5)).copy(),
+                           device=cuda)
+        cnt = torch.zeros(B, dtype=torch.int32, device=cuda)
+        got = want = (None, torch.zeros((B, S, 2), device=cuda))
+        outs = ([], [])
+        for _ in range(2):
+            x = torch.tensor((rng.standard_normal((B, T)) * 0.5).astype(
+                np.float32), device=cuda)
+            got = biq.biquad_dual(x, got[1], cft, cft, cnt)
+            want = biq.biquad_dual_ref(x, want[1], cft, cft, cnt)
+            outs[0].append(got[0])
+            outs[1].append(want[0])
+        torch.cuda.synchronize()
+        a, b = outs[0] + [got[1]], outs[1] + [want[1]]
+        equal = all(torch.equal(u, v) for u, v in zip(a, b))
+        err = max(float((u.double() - v.double()).abs().max())
+                  for u, v in zip(a, b))
+        emit({"phase": "kernel", "name": "biquad", "shape": label, "V": B,
+              "T": T, "sections": S, "calls": 2, "max_abs_err": err,
+              "bit_equal": equal})
+        if not equal:
+            raise AssertionError(f"biquad != plain at {label} B={B}: {err}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+# Cycles of each entry's loop-carried chain per sample, counted from
+# csrc/effect_scan.cu at Hopper's 4-cycle dependent FP32 latency: the
+# swept TDF2's z0 -> y -> z0 is add, mul, sub, add (16); the autowah's env
+# -> env is a compare feeding a select, then mul and add (16); the
+# compressor's env -> env is mul, min/max and a select (12).
+SCAN_CHAIN_CYCLES = {"compressor_env": 12, "autowah_env": 16,
+                     "swept_tdf2": 16}
+# Float operations per line-sample of each entry, and the floats it moves
+# per line-sample (input and output) beside its per-line state.
+SCAN_FLOPS = {"compressor_env": 5, "autowah_env": 5, "swept_tdf2": 9}
+
+
+def scan_bound(entry: str, B: int, T: int) -> tuple[float, str]:
+    """An effect_scan call: its input and output lines read and written
+    once (and the swept filter's five coefficient rows), against its
+    operations."""
+    floats = 2 * B * T + (5 * T if entry == "swept_tdf2" else 0) + 4 * B
+    return bound(4 * floats, SCAN_FLOPS[entry] * B * T)
+
+
+def phase_effect_scan_timings(cuda, report: dict, smi: str) -> None:
+    """Phase 23: each effect_scan entry alone (CUDA events over 20 raw
+    launches, previous, new, new, previous where the build directory
+    holds parent/effect_scan.cu) and through its wrapper, at B 4 and 9 and
+    T 1024 and 16384, beside its bound and its chain floor (T x the
+    chain's cycles over the SM clock from the biquad kernel's probe); its
+    plain version at T 1024.  The JSON line's effect_scan row sums the
+    three entries at fx_rack's per-block shapes (the compressor and
+    autowah envelopes of one line, the swept filter over 9 lines)."""
+    import ctypes
+
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import _build
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+    from openal_soft_tpu_torch.ops.kernels import effect_scan as es
+
+    cycles, ns = biq.chain_probe(1 << 20, cuda)
+    ghz = cycles / ns
+    libs = {"new": _build.load_library("effect_scan")}
+    parent = parent_kernel("effect_scan")
+    if parent is not None:
+        libs["parent"] = parent
+    rng = np.random.default_rng(14)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fx_shapes = {"compressor_env": 1, "autowah_env": 1, "swept_tdf2": 9}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    by = set()
+    for B in (4, 9, 1):
+        for T in (BLOCK, 16 * BLOCK):
+            if B == 1 and T != BLOCK:
+                continue
+            x = scan_inputs(rng, B, T, cuda)
+            env = torch.ones(B, device=cuda)
+            prm = {"compressor_env": torch.tensor([1.0003, 0.9998],
+                                                  device=cuda),
+                   "autowah_env": torch.tensor([1.3, 0.999, 0.9995],
+                                               device=cuda)}
+            cf = swept_coeffs(es.autowah_env_ref(
+                x[:1], torch.zeros(1, device=cuda), prm["autowah_env"])[0][0])
+            z = torch.zeros((B, 2), device=cuda)
+            out = torch.empty_like(x)
+            st = torch.empty(B, 2, device=cuda)
+            for entry in SCAN_CHAIN_CYCLES:
+                if entry == "swept_tdf2":
+                    ptrs = [x, cf, z, out, st]
+                    wrap = lambda: es.swept_tdf2(x, cf, z)  # noqa: E731
+                    plain = lambda: es.swept_tdf2_ref(x, cf, z)  # noqa: E731
+                else:
+                    a = x.abs().clamp(0.5, 2.0) if entry == "compressor_env" \
+                        else x
+                    ptrs = [a, env, prm[entry], out, st]
+                    fn = getattr(es, entry)
+                    ref = getattr(es, entry + "_ref")
+                    wrap = (lambda fn=fn, a=a, p=prm[entry]:
+                            fn(a, env, p))
+                    plain = (lambda ref=ref, a=a, p=prm[entry]:
+                             ref(a, env, p))
+                times = {}
+                for key, which in (("parent_ms", "parent"), ("ms", "new"),
+                                   ("ms_2", "new"),
+                                   ("parent_ms_2", "parent")):
+                    if which not in libs:
+                        continue
+                    raw = getattr(libs[which], f"{entry}_launch")
+                    raw.argtypes = [ctypes.c_void_p] * 5 + [
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                    raw.restype = ctypes.c_int
+                    args = [t.data_ptr() for t in ptrs] + [B, T, stream]
+                    times[key] = cuda_ms(lambda: raw(*args), 20, 3)
+                times["wrapper_ms"] = cuda_ms(wrap, 20, 3)
+                bound_ms, bound_by = scan_bound(entry, B, T)
+                row = {"phase": "timing", "name": "effect_scan",
+                       "entry": entry, "B": B, "T": T, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       "chain_floor_ms": T * SCAN_CHAIN_CYCLES[entry]
+                       / ghz * 1e-6, "sm_GHz": ghz, "nvidia_smi": smi}
+                if T == BLOCK:
+                    row["plain_ms"] = cuda_ms(plain, 1, 1)
+                emit(rates(row, times, 4 * B * T, bound_ms))
+                if T == BLOCK and B == fx_shapes[entry]:
+                    total["ms"] += times["ms"]
+                    total["plain_ms"] += row["plain_ms"]
+                    total["bound_ms"] += bound_ms
+                    by.add(bound_by)
+    report["effect_scan"].update(
+        total, bound_by="bytes" if by == {"bytes"} else "operations")
+
+
+def launches_per_block(dev, frames: int) -> float:
+    """Device operations (kernels, copies, fills) per 1024-frame block of
+    one render call, counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dev.render_samples(frames)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n / (frames / BLOCK)
+
+
+def engine_costs(dev) -> dict:
+    """Each slot's engine alone over one 1024-sample block of noise on its
+    wet bus (the scene's parameters and state): the device operations it
+    issues (torch.profiler) and its wall ms with the card synchronised
+    (median of 5)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    wet = torch.randn((dev.wet_channels, BLOCK), device="cuda") * 0.1
+    costs = {}
+    for i, slot in enumerate(dev.slots):
+        run = lambda: slot.state.process(  # noqa: E731
+            dev._state[f"slot{i}"], dev._cfg_dev[f"slot{i}"], wet, BLOCK)
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]
+                                    ) as prof:
+            run()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        costs[slot.effect_type] = {"device_ops": ops,
+                                   "wall_ms": float(np.median(walls))}
+    return costs
+
+
+def phase_fx_rack(wrappers: dict, report: dict, smi: str, seed: int) -> None:
+    """Phase 24: fx_rack at full width through the port's entry points: a
+    game's EFX zones on 5.1 speakers, with every engine a game can select
+    live at once.  One warm 512-block call, one timed; then the device
+    operations per block over 8 blocks."""
+    import torch
+
+    from openal_soft_tpu_torch.core.devformat import Channel
+    from openal_soft_tpu_torch.effects import effect_registry
+
+    engines = sorted(set(effect_registry) - {"null", "reverb",
+                                               "eaxreverb"})
+    if engines != sorted(FX_ENGINES):
+        raise AssertionError(f"fx_rack's engines {sorted(FX_ENGINES)} are "
+                             f"not the registry's {engines}")
+    frames = CHUNK_BLOCKS * BLOCK
+    t0 = time.perf_counter()
+    dev = fx_rack_scene(N_VOICES, "cuda", seed)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev.render_samples(frames)                       # warm
+    warm_s = time.perf_counter() - t0
+    for name in KERNELS:
+        wrappers[name].launches = 0
+    t0 = time.perf_counter()
+    out = dev.render_samples(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in KERNELS}
+    report["effect_scan"]["launches"] = launches["effect_scan"]
+    per_block = launches_per_block(dev, 8 * BLOCK)
+    emit({"phase": "fx_rack", "engine_costs_per_block": engine_costs(dev),
+          "nvidia_smi": smi})
+    idx = dev.layout.channel_index
+    fc, lfe = idx[Channel.FRONT_CENTER], idx[Channel.LFE]
+    finite = bool(np.isfinite(out).all())
+    peak = float(np.abs(out).max())
+    emit({"phase": "fx_rack", "voices": N_VOICES, "slots": len(dev.slots),
+          "frames": frames, "setup_s": setup_s, "warm_s": warm_s,
+          "render_s": dt, "ms_per_call": 1e3 * dt,
+          "x_realtime": (frames / RATE) / dt,
+          "device_ops_per_block": per_block, "launches": launches,
+          "finite": finite, "peak": peak,
+          "fc_peak": float(np.abs(out[:, fc]).max()),
+          "lfe_peak": float(np.abs(out[:, lfe]).max()),
+          "shape": list(out.shape), "nvidia_smi": smi})
+    if (out.shape != (frames, 6) or not finite or not peak > 0.0
+            or not np.abs(out[:, fc]).max() > 0.0
+            or not np.abs(out[:, lfe]).max() > 0.0):
+        raise AssertionError("fx_rack output is not finite, nonzero "
+                             f"[{frames}, 6] with FC and LFE: shape "
+                             f"{out.shape}, finite {finite}, peak {peak}")
+    if not all(launches[k] > 0 for k in ("effect_scan", "resample_gen",
+                                         "reverb", "biquad")):
+        raise AssertionError(f"fx_rack skipped a kernel: {launches}")
+
+
+def phase_fx_parity(wrappers: dict, seed: int) -> None:
+    """Phase 25: each engine at 64 voices on the card against the port on
+    the CPU, on stereo, the dedicated engines also on surround51, and the
+    equalizer, echo and pitch shifter on an HRTF device (the fused
+    branch, slots in 1024-sample sub-windows): multi-block (8192 frames)
+    and per-block (4096), <= 1e-4 (1e-3 with the pitch shifter)."""
+    cases = [(name, "stereo", False, (name,)) for name in FX_ENGINES]
+    cases += [(name + "_51", "surround51", False, (name,))
+              for name in ("dedicated_dialog", "dedicated_lfe")]
+    cases += [("hrtf_eq_echo_pshift", "stereo", True,
+               ("equalizer", "echo", "pitch_shifter"))]
+    for label, channels, hrtf, engines in cases:
+        kw = dict(engines=engines, reverb=False, channels=channels,
+                  hrtf=hrtf)
+        g = fx_rack_scene(64, "cuda", seed, **kw)
+        c = fx_rack_scene(64, "cpu", seed, **kw)
+        if hrtf and not g._fused(g._graph_gates()):
+            raise AssertionError(f"{label} does not take the fused branch")
+        tol = FX_PSHIFT_TOL if "pitch_shifter" in engines else FX_TOL
+        before = {k: wrappers[k].launches for k in KERNELS}
+        for n, path in ((8192, "multi-block"), (4096, "per-block")):
+            a, b = g.render_samples(n), c.render_samples(n)
+            err = float(np.abs(a - b).max())
+            emit({"phase": "parity", "scene": label, "frames": n,
+                  "path": "fused" if hrtf and n == 8192 else path,
+                  "channels": int(b.shape[1]), "max_abs_err": err,
+                  "tol": tol, "peak": float(np.abs(b).max())})
+            if not (np.isfinite(a).all() and err <= tol
+                    and np.abs(b).max() > 1e-3):
+                raise AssertionError(f"{label} GPU vs CPU port at {n} "
+                                     f"frames: {err}")
+        need = {FX_KERNELS[e] for e in engines if e in FX_KERNELS}
+        grew = {k: wrappers[k].launches - before[k] for k in KERNELS}
+        if not all(grew[k] > 0 for k in need):
+            raise AssertionError(f"{label} skipped a kernel: {grew}")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the HBM rate against the
     operations over the fp32 peak, whichever takes longer."""
@@ -1561,7 +2102,7 @@ def reverb_bound(eff, W: int) -> tuple[float, str]:
                           + 9 * eff.late_ap_passes))
 
 
-def profile(scene: str, smi: str) -> None:
+def profile(scene: str, smi: str, seed: int = 0) -> None:
     """``--profile <scene>``: the scene at full width, one warm
     512-block call, then torch.profiler over one more.  Prints the device
     time by kernel and by aten op and input shape."""
@@ -1576,6 +2117,8 @@ def profile(scene: str, smi: str) -> None:
     elif scene == "uhj_big_pool":
         dev, _ = uhj_pool_scene("cuda", N_VOICES, 1024, 4 * RATE, 16, 8,
                                 20 * RATE)
+    elif scene == "fx_rack":
+        dev = fx_rack_scene(N_VOICES, "cuda", seed)
     else:
         dev = bench_scene(N_VOICES, N_VOICES, "cuda",
                           loaded=scene == "loaded")
@@ -1585,11 +2128,15 @@ def profile(scene: str, smi: str) -> None:
     t0 = time.perf_counter()
     dev.render_samples(frames)
     wall_plain = time.perf_counter() - t0
+    # fx_rack issues ~3600 device operations per block: a 512-block trace
+    # takes the profiler longer to summarise than the run, so it records
+    # 16 blocks.
+    profiled = 16 * BLOCK if scene == "fx_rack" else frames
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA],
                                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        dev.render_samples(frames)
+        dev.render_samples(profiled)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dtime = lambda e: getattr(e, "self_device_time_total", None) or getattr(
@@ -1599,11 +2146,14 @@ def profile(scene: str, smi: str) -> None:
                      key=dtime, reverse=True)
     busy_ms = sum(dtime(e) for e in kernels) / 1e3
     emit({"phase": "profile", "scene": scene, "voices": N_VOICES,
-          "frames": frames, "wall_ms": 1e3 * wall,
+          "frames": profiled, "wall_ms": 1e3 * wall,
+          "frames_unprofiled": frames,
           "wall_ms_unprofiled": 1e3 * wall_plain,
           "x_realtime_unprofiled": (frames / RATE) / wall_plain,
           "device_busy_ms": busy_ms,
           "idle_share": max(0.0, 1.0 - busy_ms / (1e3 * wall)),
+          "idle_share_unprofiled": max(0.0, 1.0 - busy_ms * frames / profiled
+                                       / (1e3 * wall_plain)),
           "nvidia_smi": smi})
     for e in kernels[:25]:
         emit({"phase": "profile", "kernel": e.key[:120], "calls": e.count,
@@ -1625,8 +2175,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    seed = (int(sys.argv[sys.argv.index("--seed") + 1])
+            if "--seed" in sys.argv else 0)
     if sys.argv[1:2] == ["--profile"]:
-        profile(sys.argv[2], nvidia_smi())
+        profile(sys.argv[2], nvidia_smi(), seed)
         return 0
     from openal_soft_tpu_torch.ops.kernels import biquad as biq
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
@@ -1643,6 +2195,7 @@ def main() -> int:
                 "biquad": biq.biquad_dual}
     wrappers["resample_span"] = rs_span.resample_span
     wrappers["resample_voice"] = rs_voice.resample_voice
+    wrappers["effect_scan"] = EffectScanCount()
     report = {name: {"name": name, "route": "cuda",
                      "source": f"openal_soft_tpu_torch/csrc/{name}.cu",
                      "replaces": REPLACES[name], "library_ms": None}
@@ -1885,6 +2438,18 @@ def main() -> int:
     # 19-20. uhj_big_pool at full width, then the UHJ parity scenes
     phase_uhj_big_pool(wrappers, report, smi)
     phase_uhj_parity(wrappers)
+
+    # 21-23. effect_scan against its plain version, the biquad kernel in
+    # the effects' shapes, then effect_scan timed
+    report["effect_scan"]["max_abs_err"] = check_effect_scan(cuda)
+    report["biquad"]["max_abs_err"] = max(report["biquad"]["max_abs_err"],
+                                          check_biquad_effect_shapes(cuda))
+    phase_effect_scan_timings(cuda, report, smi)
+
+    # 24-25. fx_rack at full width, then every engine on the card against
+    # the port on the CPU
+    phase_fx_rack(wrappers, report, smi, seed)
+    phase_fx_parity(wrappers, seed)
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

@@ -20,7 +20,8 @@ custom ambdec decoders, single- or dual-band), UHJ and TSME stereo output
 and Ambi3D output; native-rate or pitched voices, B-Format voices on the
 dry bus, UHJ2/3/4 and Super Stereo voices (decoded at every quality tier,
 their all-passes through the biquad kernel), direct and send filters,
-near-field compensation, and effect slots that write the dry bus.
+near-field compensation, and effect slots (every EFX engine; the
+dedicated dialog and LFE engines also write the real output).
 The resampler follows the pool: the general kernel reads taps straight
 from a pool that fits L2, the span kernel stages each tile's window from
 one that does not (``_rs_plan``).  Multi-block dispatches of unfiltered
@@ -28,9 +29,8 @@ HRTF scenes without UHJ voices take the fused super-block branch (one
 resample + one contraction per 2..16 blocks, the effects at the whole
 window where their rings allow); other multi-block dispatches resample
 once per super-block and render each block on its slice (with the UHJ
-decoders' look-ahead); single blocks take the per-block branch.  Effects
-that write the real output raise NotImplementedError naming their ROADMAP
-item; on the card nothing falls back to the CPU.
+decoders' look-ahead); single blocks take the per-block branch.  On the
+card nothing falls back to the CPU.
 
 Idiom: ``lax.scan`` with donated state becomes a Python loop that updates
 the carried state (``_state``) and the evolving fields (``ev``) in place and
@@ -94,7 +94,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 # Integer scalars of the effect state keep the JAX package's dtypes in a
 # snapshot; on the device they are int64.
 _SNAP_INT_DTYPES = {"mod_index": np.uint32, "offset": np.int32,
-                    "serial_done": np.int32}
+                    "serial_done": np.int32, "index": np.int32,
+                    "pos": np.int32, "phase": np.int32, "lfo_ns": np.int32}
 
 
 def _state_to_host(state: dict) -> dict:
@@ -853,27 +854,32 @@ class RenderDevice:
     def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
         """Every slot's effect over a window of W samples, in the widest
         sub-windows that all effects' rings allow (the whole super-block
-        for the reverb).  Returns the dry-bus contribution [n_dry, W]; slot
-        state in place.  The ported effects write only to the dry bus."""
+        for the reverb).  Returns (the dry-bus contribution [n_dry, W], the
+        real-output contribution [n_real, W] or None when no effect wrote
+        one); slot state in place."""
         Tw = W
         for slot in self.slots:
             mw = slot.state.max_window()
             while Tw > mw or W % Tw:
                 Tw //= 2
         Tw = max(Tw, T)
-        contribs = []
+        dry_parts, real_parts = [], []
         for b in range(W // Tw):
-            contrib = None
+            dry = real = None
             for i, slot in enumerate(self.slots):
                 cb, rb, state[f"slot{i}"] = slot.state.process(
                     state[f"slot{i}"], cfg[f"slot{i}"],
                     wet[i, :, b * Tw:(b + 1) * Tw], Tw)
+                dry = cb if dry is None else dry + cb
                 if rb is not None:
-                    raise NotImplementedError(
-                        "effects that write the real output: ROADMAP A12")
-                contrib = cb if contrib is None else contrib + cb
-            contribs.append(contrib)
-        return torch.cat(contribs, dim=1)
+                    real = rb if real is None else real + rb
+            dry_parts.append(dry)
+            real_parts.append(real)
+        # Whether an engine writes the real output is host-known (the
+        # device's channels), so every sub-window agrees.
+        real = (None if real_parts[0] is None
+                else torch.cat(real_parts, dim=1))
+        return torch.cat(dry_parts, dim=1), real
 
     def _direct_accum(self, state: dict, dry, W: int):
         """The dry bus through the HF scale and the baked binaural decode,
@@ -1138,9 +1144,11 @@ class RenderDevice:
                                        bool(self.slots))
         dry = self._dry_bus(state, ev, cfg, x_mix, fade_len,
                             "gate:nodry" in gates)
+        real = None
         if self.slots:
             wet = self._wet_buses(ev, cfg, x, x_sends, fade_len)
-            dry = dry + self._run_slots(state, cfg, wet, T, T)
+            contrib, real = self._run_slots(state, cfg, wet, T, T)
+            dry = dry + contrib
         if self.layout.mode == panning.RenderMode.HRTF:
             x_cat = torch.cat([state["hrtf_history"], x_mix], dim=1)
             g_eff = torch.where(cfg["playing"], cfg["hrtf_gain"], 0.0)
@@ -1156,6 +1164,8 @@ class RenderDevice:
             state["hrtf_tail"].copy_(new_tail)
         else:
             out = self._decode(state, dry)
+        if real is not None:
+            out = out + real
         self._advance(cfg, ev, T)
         return out
 
@@ -1186,7 +1196,10 @@ class RenderDevice:
         contrib = None
         if self.slots:
             wet = self._wet_buses(ev, cfg, x_all, x_sends, fade_len)
-            contrib = self._run_slots(state, cfg, wet, W, T)
+            contrib, real = self._run_slots(state, cfg, wet, W, T)
+            # HRTF stereo has no front-center or LFE channel: no effect
+            # writes the real output here.
+            assert real is None, "a real-output effect on HRTF output"
         dry = self._dry_bus(state, ev, cfg, x_all, fade_len,
                             "gate:nodry" in gates)
         if dry is not None:

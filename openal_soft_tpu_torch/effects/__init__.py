@@ -2,27 +2,26 @@
 
 Each effect has a host half (property validation and parameter
 computation, the analog of EffectState::update) and a device half on torch
-tensors (EffectState::process).  This port registers ``null``,
-``eaxreverb`` and ``reverb``; the other engines of the JAX package are
-listed and raise NotImplementedError naming their ROADMAP item.
+tensors (EffectState::process), which returns its dry-bus contribution,
+its real-output contribution or None, and its state, updated in place.
+Every engine of the JAX package is registered under the same name.
 """
 
-from . import null  # noqa: F401  (each module registers itself)
+from .base import EffectState, effect_registry, get_effect_factory
+
+from . import autowah  # noqa: F401  (each module registers itself)
+from . import chorus  # noqa: F401
+from . import compressor  # noqa: F401
+from . import convolution  # noqa: F401
+from . import dedicated  # noqa: F401
+from . import distortion  # noqa: F401
+from . import echo  # noqa: F401
+from . import equalizer  # noqa: F401
+from . import fshifter  # noqa: F401
+from . import modulator  # noqa: F401
+from . import null  # noqa: F401
+from . import pshifter  # noqa: F401
 from . import reverb  # noqa: F401
-from .base import EffectState, effect_registry
+from . import vmorpher  # noqa: F401
 
-# Engines of the JAX package not ported yet (ROADMAP A12).
-UNPORTED = ("autowah", "chorus", "compressor", "convolution",
-            "dedicated_dialog", "dedicated_lfe", "distortion", "echo",
-            "equalizer", "flanger", "frequency_shifter", "pitch_shifter",
-            "ring_modulator", "vocal_morpher")
-
-
-def get_effect_factory(name: str):
-    if name in UNPORTED:
-        raise NotImplementedError(f"the {name} effect engine: ROADMAP A12")
-    return effect_registry[name]
-
-
-__all__ = ["EffectState", "effect_registry", "get_effect_factory",
-           "UNPORTED"]
+__all__ = ["EffectState", "effect_registry", "get_effect_factory"]

@@ -6,12 +6,19 @@ the device rate), update (props -> parameters) and process (block DSP).
 [B, T]) and returns (output contribution [n_out, T], extra real-output
 contribution or None, state); the port updates the state tensors in place
 where the JAX package returned new arrays.
+
+Shared device helpers: ``effect_mix`` (the whole-block gain ramps of
+MixSamples), ``DelayRing`` (a power-of-two delay line) and
+``biquad_fixed`` / ``biquad_fixed4`` (fixed TDF2 sections through the
+biquad kernel's wrapper).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.kernels import biquad as biq
 
 f32 = np.float32
 
@@ -24,6 +31,23 @@ def register(name: str):
         cls.name = name
         return cls
     return deco
+
+
+def get_effect_factory(name: str):
+    return effect_registry[name]
+
+
+_CONSTS: dict = {}
+
+
+def const(a: np.ndarray, device) -> torch.Tensor:
+    """A module-level constant array on ``device``, uploaded once and
+    shared read-only."""
+    key = (id(a), str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(a, device=device)
+    return t
 
 
 class EffectState:
@@ -78,19 +102,115 @@ def ambi_mix_params(device, gainbase: float):
 
 
 def effect_mix(taps: torch.Tensor, cur: torch.Tensor, tgt: torch.Tensor,
-               T: int):
-    """Effect-output mixing with whole-block gain ramps: MixSamples with
-    Counter = samplesToDo (e.g. alc/effects/echo.cpp:157-159) ramps each
-    gain linearly across the block, landing on the target.
+               T: int, counter: int | None = None):
+    """Effect-output mixing with gain ramps: MixSamples (mixer_c.cpp Mix_)
+    ramps each gain linearly from cur toward tgt over ``counter`` samples,
+    the whole block by default (Counter = samplesToDo, e.g.
+    alc/effects/echo.cpp:157-159), then holds the target (zero below the
+    silence threshold).
 
     taps: [K, T] effect output lines; cur/tgt: [K, C] gains.
-    Returns (out [C, T], new_cur [K, C]).
+    Returns (out [C, T], new_cur [K, C]); counter <= T lands on tgt.
     """
+    counter = T if counter is None else counter
     i = torch.arange(T, dtype=torch.float32, device=taps.device)
-    step = (tgt - cur) * f32(1.0 / T)             # MixLine's delta rounding
+    step = (tgt - cur) * f32(1.0 / counter)       # MixLine's delta rounding
     ramp_active = step.abs() > f32(1.1920929e-07)
     tgt_masked = torch.where(tgt.abs() > 1.0e-5, tgt, 0.0)
-    gains = torch.where(ramp_active[:, :, None],
+    ramping = ramp_active[:, :, None]
+    if counter < T:
+        ramping = ramping & (i < counter)
+    gains = torch.where(ramping,
                         cur[:, :, None] + step[:, :, None] * i[None, None, :],
                         tgt_masked[:, :, None])
     return torch.einsum("kt,kct->ct", taps, gains), tgt
+
+
+class DelayRing:
+    """A power-of-two delay line as device state: ``buf`` [lines, length]
+    and the write ``offset`` (an int64 scalar tensor).
+
+    The offset advances by exactly T per block and the length is a
+    multiple of T, as in the JAX package, whose reads are two-piece
+    dynamic slices.  Here a read or a write is index arithmetic on the
+    device, (offset - lag + i) mod length, so a lag held in a device
+    tensor needs no host round trip.
+    """
+
+    @staticmethod
+    def length_for(min_samples: int, T: int) -> int:
+        n = T
+        while n < min_samples:
+            n <<= 1
+        return n
+
+    @staticmethod
+    def init(length: int, lines: int, device) -> dict:
+        return {"buf": torch.zeros((lines, length), dtype=torch.float32,
+                                   device=device),
+                "offset": torch.zeros((), dtype=torch.int64, device=device)}
+
+    @staticmethod
+    def _index(state: dict, lag, n: int) -> torch.Tensor:
+        buf = state["buf"]
+        i = torch.arange(n, dtype=torch.int64, device=buf.device)
+        return torch.remainder(state["offset"] - lag + i, buf.shape[1])
+
+    @staticmethod
+    def read(state: dict, lag, T: int) -> torch.Tensor:
+        """[lines, T]: the ring's samples from (offset - lag) on; ``lag``
+        an int or an integer tensor."""
+        return state["buf"][:, DelayRing._index(state, lag, T)]
+
+    @staticmethod
+    def read_window(state: dict, lookback: int, T: int) -> torch.Tensor:
+        """[lines, lookback + T]: block positions [-lookback, T) relative to
+        the write start (after a write: this block's samples)."""
+        return state["buf"][:, DelayRing._index(state, lookback,
+                                                lookback + T)]
+
+    @staticmethod
+    def write(state: dict, values: torch.Tensor, T: int) -> None:
+        """Write values [lines, T] at the offset and advance it, in place."""
+        state["buf"][:, DelayRing._index(state, 0, T)] = values
+        state["offset"].copy_(torch.remainder(state["offset"] + T,
+                                              state["buf"].shape[1]))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned, as the biquad kernel reads it."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _run_sections(x: torch.Tensor, z: torch.Tensor, cf: torch.Tensor):
+    L = x.shape[0]
+    cnt = torch.zeros(L, dtype=torch.int32, device=x.device)
+    y, z2, _, _ = biq.biquad_dual(_aligned(x), z, cf, cf, cnt)
+    return y, z2
+
+
+_IDENTITY = np.array([1.0, 0.0, 0.0, 0.0, 0.0], f32)   # b = [1, 0, 0], a = 0
+
+
+def biquad_fixed(x: torch.Tensor, z: torch.Tensor, coeffs: torch.Tensor):
+    """One fixed TDF2 section (coeffs [5]: b0, b1, b2, a1, a2) over each
+    line of x [L, T] from state z [L, 2], on the biquad kernel: the section
+    and an identity section, counter 0 and target = coeffs, so nothing
+    interpolates.  The identity section (its state always +-0, so started
+    from zeros each call) passes its input through exactly up to the sign
+    of zero.  Returns (y [L, T], z' [L, 2])."""
+    L = x.shape[0]
+    cf = torch.stack([coeffs.reshape(5), const(_IDENTITY, x.device)]
+                     ).expand(L, 2, 5).contiguous()
+    y, z2 = _run_sections(x, torch.stack([z, torch.zeros_like(z)], 1), cf)
+    return y, z2[:, 0].contiguous()
+
+
+def biquad_fixed4(x: torch.Tensor, z: torch.Tensor, coeffs: torch.Tensor):
+    """Four fixed cascaded TDF2 sections (coeffs [4, 5]) over each line of
+    x [L, T] from state z [L, 4, 2], in one kernel call.
+    Returns (y [L, T], z' [L, 4, 2])."""
+    L = x.shape[0]
+    cf = coeffs.reshape(1, 4, 5).expand(L, 4, 5).contiguous()
+    return _run_sections(x, z.contiguous(), cf)

@@ -14,7 +14,8 @@ JAX package's, in numpy.  The device half runs each pipeline through
 (``csrc/reverb.cu``) on the card — the current pipeline "A", the old
 pipeline "B" while a crossfade is in flight, at any window the device
 dispatches (a 1024-sample block or a whole super-block).  The first-order
-upmix of higher-order devices runs in torch after the pipeline.  Carried
+upmix of higher-order devices (its HF scale through the chunk-parallel
+band splitter) runs in torch after the pipeline.  Carried
 state is a dict of tensors updated in place.
 
 Property names follow EFX in snake_case; defaults are the AL_EAXREVERB
@@ -308,6 +309,7 @@ class ReverbEffect(EffectState):
     def device_update(self, buffer=None) -> dict:
         self._splitter_coeff = float(f_ops.band_splitter_coeff(
             getattr(self.device.layout, "xover_f0norm", 400.0 / self.freq)))
+        self._upmix_split = f_ops.BandSplitterKernels(self._splitter_coeff)
         self._serial = 0
         self._params = None
         self._prev = None
@@ -500,13 +502,18 @@ class ReverbEffect(EffectState):
         layout = self.device.layout
 
         def coeffs_for(a2b, mat):
-            res = np.zeros((NUM_LINES, 16), f32)
+            # Rows in the reference's coefficient space: 16 ACN columns, or
+            # the upsampler's 25 above first order (the JAX package sizes
+            # them 16 there and raises, ROADMAP C9); compute_pan_gains
+            # picks the device's ACNs.
             if self.upmix:
                 up = self.first_order_up            # [4, n_up]
+                res = np.zeros((NUM_LINES, max(16, up.shape[1])), f32)
                 for i in range(4):
                     for j in range(4):
                         res[i, :up.shape[1]] += mat[i][j] * up[j]
             else:
+                res = np.zeros((NUM_LINES, 16), f32)
                 for i in range(4):
                     for j in range(4):
                         res[i, :4] += a2b[j][i] * mat[j]
@@ -553,12 +560,15 @@ class ReverbEffect(EffectState):
                 mod_win=self.mod_win,
                 max_late_tap=self._late_tap_max.get(prefix))
             if self.upmix:
-                early, pst["split_early"] = f_ops.band_split_hf_scale(
+                # The band splitter's chunk-parallel form: the
+                # sample-sequential one (the JAX package's) is ~15 launches
+                # per sample on the card.
+                early, pst["split_early"] = self._upmix_split.hf_scale(
                     torch.matmul(tabs["a2b_e"], early), pst["split_early"],
-                    self._splitter_coeff, tabs["hfs"])
-                late, pst["split_late"] = f_ops.band_split_hf_scale(
+                    tabs["hfs"])
+                late, pst["split_late"] = self._upmix_split.hf_scale(
                     torch.matmul(tabs["a2b_l"], late), pst["split_late"],
-                    self._splitter_coeff, tabs["hfs"])
+                    tabs["hfs"])
             taps += [early, late]
             tgt += [params[prefix + "g_early"], params[prefix + "g_late"]]
             cur += [pst["g_early_cur"], pst["g_late_cur"]]

@@ -14,6 +14,7 @@ import torch
 
 import chip_smoke
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
+from openal_soft_tpu_torch.ops.kernels import effect_scan as t_es
 from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
 from openal_soft_tpu_torch.ops.kernels import resample_span as t_span
 from openal_soft_tpu_torch.ops.kernels import resample_unit as t_unit
@@ -276,3 +277,62 @@ def test_uhj_scene_on_the_card_matches_the_cpu(cuda, scene):
         assert t_gen.resample_gen.launches == span[1]
     else:
         assert t_gen.resample_gen.launches > span[1]
+
+
+@pytest.mark.parametrize("T", [128, 1024, 16384])
+@pytest.mark.parametrize("B", [1, 4, 9])
+def test_effect_scan_equals_plain_version(cuda, B, T):
+    """Each effect_scan entry bit-equal to its plain version, with state
+    carried over two calls; the compressor on and off, the autowah's
+    attack above and below its release, swept coefficients at the clamp
+    of w0."""
+    rng = np.random.default_rng(B * T)
+    xs = [chip_smoke.scan_inputs(rng, B, T, cuda) for _ in range(2)]
+    before = t_es.launches()
+    cases = [("compressor_env", [x.abs().clamp(0.5, 2.0) for x in xs],
+              torch.ones(B, device=cuda),
+              torch.tensor([1.0003, 0.9998], device=cuda)),
+             ("compressor_env", [torch.ones_like(x) for x in xs],
+              torch.full((B,), 1.5, device=cuda),
+              torch.tensor([1.0003, 0.9998], device=cuda))]
+    for att, rel in ((0.9995, 0.995), (0.995, 0.9995)):
+        cases.append(("autowah_env", xs, torch.zeros(B, device=cuda),
+                      torch.tensor([1.3, att, rel], device=cuda)))
+    for entry, ins, env, prm in cases:
+        got = want = (None, env)
+        for x in ins:
+            got = getattr(t_es, entry)(x, got[1], prm)
+            want = getattr(t_es, entry + "_ref")(x, want[1], prm)
+            assert torch.equal(got[0], want[0]), entry
+        assert torch.equal(got[1], want[1]), entry
+    got = want = (None, torch.zeros((B, 2), device=cuda))
+    for x in xs:
+        env = t_es.autowah_env_ref(x[:1], torch.zeros(1, device=cuda),
+                                   cases[-1][3])[0][0]
+        cf = chip_smoke.swept_coeffs(env)
+        got = t_es.swept_tdf2(x, cf, got[1])
+        want = t_es.swept_tdf2_ref(x, cf, want[1])
+        assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert t_es.launches() == before + 2 * len(cases) + 2
+
+
+def test_biquad_kernel_in_the_effects_shapes(cuda):
+    """K7 as the equalizer (four constant sections) and as a one-section
+    effect (an identity section beside it) calls it: bit-equal."""
+    assert chip_smoke.check_biquad_effect_shapes(cuda) == 0.0
+
+
+@pytest.mark.parametrize("engine", list(chip_smoke.FX_ENGINES))
+def test_effect_engine_on_the_card_matches_the_cpu(cuda, engine):
+    """An fx_rack of 64 voices with one engine's slot, card against CPU."""
+    g = chip_smoke.fx_rack_scene(64, "cuda", 0, engines=(engine,),
+                                 reverb=False, channels="stereo")
+    c = chip_smoke.fx_rack_scene(64, "cpu", 0, engines=(engine,),
+                                 reverb=False, channels="stereo")
+    tol = (chip_smoke.FX_PSHIFT_TOL if engine == "pitch_shifter"
+           else chip_smoke.FX_TOL)
+    for n in (8192, 4096):
+        assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
+            <= tol

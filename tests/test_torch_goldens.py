@@ -3,11 +3,14 @@
 compensation, the front stabilizer), a direct-path filter, EAXReverb on
 stereo output, Ambi3D output with near-field compensation, UHJ and TSME
 stereo output at every encoder tier, UHJ2/UHJ4 and Super Stereo voices at
-every decoder tier, and B-Format voices.
+every decoder tier, B-Format voices, every other EFX engine (the 19
+``fx_*`` goldens) and the int16 output stage with its limiter.
 
 The scenes are those of tests/test_e2e_stereo.py, test_e2e_reverb.py,
 test_e2e_ambdec.py, test_e2e_nfc.py, test_e2e_uhj_out.py,
-test_e2e_codec_tiers.py and test_e2e_ambisonic.py, and the tolerances theirs, on
+test_e2e_codec_tiers.py, test_e2e_ambisonic.py, test_e2e_effects{,2,3,4}.py,
+test_e2e_convolution_ambi.py and test_output_stage.py, and the tolerances
+theirs, on
 devices of 4 voices (the scenes play 1 or 2; inactive rows are masked, so
 the capacity does not change the output, only the CPU's work).  The
 goldens are read, never written (ROADMAP C3).  The port runs the direct
@@ -37,7 +40,12 @@ from tests.test_e2e_ambisonic import _bformat_signal as ambi_bformat
 from tests.test_e2e_ambisonic import _uhj_signal as ambi_uhj
 from tests.test_e2e_codec_tiers import _mono_tone as codec_mono_tone
 from tests.test_e2e_codec_tiers import _stereo_prog as codec_stereo_prog
+from tests.test_e2e_convolution_ambi import ORIENT as CONV_ORIENT
+from tests.test_e2e_convolution_ambi import _ir as conv_ir
+from tests.test_e2e_effects import _tone as fx_tone
+from tests.test_e2e_effects2 import _signal as fx_signal
 from tests.test_e2e_uhj_out import _sources as uhj_out_sources
+from tests.test_output_stage import _tone as out_tone
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
@@ -124,6 +132,106 @@ TOL = dict.fromkeys(STEREO, 1e-5) | dict.fromkeys(REVERB, 1e-5) | {
     "src_bformat3d": 1e-5, "src_bformat3d_rot": 1e-5, "src_uhj2": 1e-5,
     "src_uhj4": 1e-5}
 SKIP = {"ambdec_itu51": 128}
+
+# test_e2e_effects{,2,3,4}.py's and test_e2e_convolution_ambi.py's scenes:
+# golden -> (engine, properties or the convolution IR's format, the voice's
+# signal, frames).  One voice at (0.7, 0, -1) on a 44.1 kHz stereo device
+# sends to the slot.
+FX = {
+    "fx_echo": ("echo", {"delay": 0.123, "lr_delay": 0.047, "damping": 0.6,
+                         "feedback": 0.55, "spread": -0.8}, "tone", 3 * 8192),
+    "fx_equalizer": ("equalizer", {"low_gain": 2.0, "low_cutoff": 180.0,
+                                   "mid1_gain": 0.4, "mid1_center": 700.0,
+                                   "mid1_width": 0.8, "high_gain": 1.8,
+                                   "high_cutoff": 5500.0}, "tone", 8192),
+    "fx_convolution": ("convolution", "stereo", "tone", 2 * 8192),
+    "fx_chorus": ("chorus", {"waveform": 1, "rate": 1.3, "depth": 0.08,
+                             "feedback": 0.4, "delay": 0.012, "phase": 90},
+                  "signal", 2 * 8192),
+    "fx_flanger": ("flanger", {"waveform": 0, "rate": 0.4, "depth": 0.8,
+                               "feedback": -0.45, "delay": 0.0022,
+                               "phase": 30}, "signal", 2 * 8192),
+    "fx_compressor": ("compressor", {"onoff": True}, "signal", 2 * 8192),
+    "fx_distortion": ("distortion", {"edge": 0.4, "gain": 0.1,
+                                     "lowpass_cutoff": 6000.0,
+                                     "eq_center": 2500.0,
+                                     "eq_bandwidth": 1500.0}, "signal", 8192),
+    "fx_autowah": ("autowah", {"attack_time": 0.03, "release_time": 0.15,
+                               "resonance": 500.0, "peak_gain": 20.0},
+                   "signal", 8192),
+    "fx_pshifter": ("pitch_shifter", {"coarse_tune": 7, "fine_tune": -30},
+                    "signal", 2 * 8192),
+    "fx_pshifter_down": ("pitch_shifter", {"coarse_tune": -9,
+                                           "fine_tune": 15}, "signal", 8192),
+    "fx_fshifter": ("frequency_shifter", {"frequency": 250.0,
+                                          "left_direction": 0,
+                                          "right_direction": 1},
+                    "signal", 2 * 8192),
+    "fx_fshifter_off": ("frequency_shifter", {"frequency": 120.0,
+                                              "left_direction": 2,
+                                              "right_direction": 0},
+                        "signal", 8192),
+    "fx_vmorpher": ("vocal_morpher", {"phoneme_a": 0, "phoneme_b": 4,
+                                      "phoneme_a_coarse": 0,
+                                      "phoneme_b_coarse": -5, "waveform": 0,
+                                      "rate": 3.0}, "signal", 2 * 8192),
+    "fx_modulator_sin": ("ring_modulator", {"frequency": 130.0,
+                                            "highpass_cutoff": 600.0,
+                                            "waveform": 0}, "tone", 2 * 8192),
+    "fx_modulator_saw": ("ring_modulator", {"frequency": 130.0,
+                                            "highpass_cutoff": 600.0,
+                                            "waveform": 1}, "tone", 2 * 8192),
+    "fx_modulator_square": ("ring_modulator", {"frequency": 130.0,
+                                               "highpass_cutoff": 600.0,
+                                               "waveform": 2},
+                            "tone", 2 * 8192),
+    "fx_dedicated_dialog": ("dedicated_dialog", {"gain": 0.8}, "tone", 8192),
+    "fx_conv_bformat3d": ("convolution", "bformat3d", "tone", 8192),
+    "fx_conv_uhj2": ("convolution", "uhj2", "tone", 8192),
+}
+TOL |= dict.fromkeys(FX, 1e-4) | {"fx_pshifter": 1e-3,
+                                  "fx_pshifter_down": 1e-3}
+FX_RATE = 44100
+
+
+def _fx_ir(fmt: str) -> np.ndarray:
+    """test_e2e_effects.py's 6000-sample stereo IR, or
+    test_e2e_convolution_ambi.py's B-Format 3D / UHJ2 IRs."""
+    if fmt == "bformat3d":
+        return conv_ir(4, seed=21)
+    if fmt == "uhj2":
+        return conv_ir(2, seed=22)
+    rng = np.random.default_rng(11)
+    t = np.arange(6000) / FX_RATE
+    return (rng.standard_normal((6000, 2)) * np.exp(-t * 12.0)[:, None]
+            * 0.4).astype(np.float32)
+
+
+def render_fx(name: str):
+    engine, props, signal, frames = FX[name]
+    dev = LoopbackDevice(frequency=FX_RATE, channels="stereo",
+                         sample_type="float32", capacity=4, device="cpu")
+    ctx = dev.create_context()
+    slot = ctx.create_aux_slot()
+    eff = ctx.create_effect(engine)
+    if engine == "convolution":
+        if props == "bformat3d":
+            eff.set("orient_at", CONV_ORIENT[:3])
+            eff.set("orient_up", CONV_ORIENT[3:])
+        slot.set_effect(eff)
+        irb = ctx.create_buffer()
+        irb.set_data(_fx_ir(props), props, "float32", FX_RATE)
+        slot.set_buffer(irb)
+    else:
+        for k, v in props.items():
+            eff.set(k, v)
+        slot.set_effect(eff)
+    data = (fx_tone(FX_RATE // 2, 440.0) if signal == "tone"
+            else fx_signal(FX_RATE // 2))
+    src = _play(ctx, data, FX_RATE, position=(0.7, 0.0, -1.0))
+    src.send(slot, 0)
+    src.play()
+    return dev, dev.render_samples(frames)
 
 
 def render_stereo(name: str):
@@ -265,7 +373,8 @@ RENDER = (dict.fromkeys(STEREO, render_stereo)
              "nfc_ambi3d": render_nfc}
           | dict.fromkeys(("uhj_out", "tsme_out"), render_uhj_out)
           | dict.fromkeys(CODEC, render_codec)
-          | dict.fromkeys(AMBI, render_ambi))
+          | dict.fromkeys(AMBI, render_ambi)
+          | dict.fromkeys(FX, render_fx))
 
 
 def deviation(name: str):
@@ -289,6 +398,25 @@ def test_golden_through_the_port(name):
         assert np.abs(got[:, 2]).max() > 1e-4      # FC gets the stabilized mid
     if name == "nfc_ambi3d":
         assert dev.nfc is not None
+
+
+def test_int16_output_stage_through_the_port():
+    """test_output_stage.py's scene: a hot tone on an int16 stereo device,
+    so that the limiter engages; the port's limiter, dither and
+    quantization within 1 LSB of the golden (C12)."""
+    rate = 48000
+    dev = LoopbackDevice(frequency=rate, channels="stereo",
+                         sample_type="int16", capacity=4, device="cpu")
+    assert dev.limiter is not None
+    ctx = dev.create_context()
+    src = _play(ctx, out_tone(rate // 4, 300.0, 1.4), rate,
+                position=(0.3, 0.0, -1.0))
+    src.play()
+    got = dev.render_samples(3 * 4096)
+    want = _golden("int16_limited")
+    assert got.dtype == np.int16 and got.shape == want.shape
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    assert np.abs(want).max() >= 32000       # the limiter engaged
 
 
 if __name__ == "__main__":

@@ -44,6 +44,24 @@ for pitch in (0.7, 1.6):
     src.play()
 out = np.concatenate([dev.render_samples(4096), dev.render_samples(1024)])
 assert out.shape == (5120, 2) and np.isfinite(out).all() and out.any()
+# A surround51 scene with an echo and a dedicated-dialog slot (the real
+# output), one voice sending to each.
+fx = LoopbackDevice(channels="surround51", hrtf=False, capacity=4,
+                    device="cpu")
+fctx = fx.create_context()
+fbuf = fctx.create_buffer()
+fbuf.set_data((0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
+              "mono", "float32", 48000)
+for name in ("echo", "dedicated_dialog"):
+    fslot = fctx.create_aux_slot()
+    fslot.set_effect(fctx.create_effect(name))
+    src = fctx.create_source()
+    src.buffer(fbuf)
+    src.looping = True
+    src.send(fslot, 0)
+    src.play()
+out = fx.render_samples(2048)
+assert out.shape == (2048, 6) and np.isfinite(out).all() and out[:, 2].any()
 # A filtered speaker scene: stereo pairwise output, a lowpass direct filter
 # and a lowpass send filter into the slot.
 spk = LoopbackDevice(capacity=4, device="cpu")

@@ -147,9 +147,10 @@ def _one_voice(hrtf: bool):
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    """What the port does not render yet raises, naming its item: a chorus
-    slot (A12).  UHJ voices and UHJ output (A11b, tests/test_torch_uhj.py),
-    filters and speaker output (tests/test_torch_speakers.py) render."""
+    """Branches that earlier slices left unported now render: UHJ voices
+    and UHJ output (A11b, tests/test_torch_uhj.py), a chorus slot (A12,
+    tests/test_torch_effects.py), filters and speaker output
+    (tests/test_torch_speakers.py)."""
     from openal_soft_tpu_torch.alc import config as t_conf
 
     dev, ctx, src = _one_voice(hrtf=False)
@@ -177,8 +178,12 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
 
     dev, ctx, src = _one_voice(hrtf=True)
     slot = ctx.create_aux_slot()
-    with pytest.raises(NotImplementedError, match="A12"):
-        slot.set_effect(ctx.create_effect("chorus"))
+    slot.set_effect(ctx.create_effect("chorus"))
+    src.looping = True
+    src.send(slot, 0)
+    src.play()
+    out = dev.render_samples(1024)
+    assert np.isfinite(out).all() and np.abs(out).max() > 1e-3
 
     dev, ctx, src = _one_voice(hrtf=False)       # pairwise stereo renders
     flt = ctx.create_filter("lowpass")
