@@ -129,6 +129,26 @@ result:
                 equalizer, echo and pitch shifter on HRTF (the fused
                 branch), 8192 and 4096 frames: <= 1e-4 (1e-3 with the
                 pitch shifter)
+ 26. api        best_case and speakers_filtered at 4096 voices built only
+                through openal_soft_tpu_torch.al.api (bench_scene's seed
+                and draw order), a warm and a timed 512-block
+                alcRenderSamplesSOFT call each, bit-equal to bench_scene's
+                builds of the same scenes; no AL error, every source
+                AL_PLAYING with its AL_SAMPLE_OFFSET advanced, the device
+                clock equal to the frames rendered; the build's wall time
+                and x realtime through the API and directly
+ 27. eax        the API speakers_filtered scene with EAX 2.0 (hangar,
+                -1200 mB occlusion on every other source) at 4096 voices:
+                finite and unlike the scene without EAX; at 64 voices the
+                card against the CPU, <= 1e-4
+ 28. playback   the wave writer through alcOpenDevice (ALC_MONO_SOURCES
+                4096) with the API speakers_filtered scene: 8 periods of
+                1024 frames with pause and resume between them, bit-equal
+                to a loopback device's render in the same calls; after
+                alcResetDeviceSOFT every source plays on, on the card,
+                connected; the null output's thread for ~2 s (its share of
+                realtime); handle_disconnect: ALC_CONNECTED 0, the event
+                delivered, every voice stopped
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
@@ -259,6 +279,70 @@ def bench_scene(n_voices: int, capacity: int, device: str,
             set_direct_lowpass(ctx, src, float(rng.uniform(0.1, 0.9)))
         src.play()
     return dev
+
+
+# EFX enums (AL/efx.h) that the API scenes use beside the api module's.
+AL_FILTER_LOWPASS = 0x0001
+AL_LOWPASS_GAINHF = 0x0002
+AL_EFFECT_EAXREVERB = 0x8000
+
+
+def api_open_loopback(capacity: int, device: str, channels: str = "stereo",
+                      hrtf: bool = True, **dev_kw):
+    """bench_scene's device, opened through alcLoopbackOpenDeviceSOFT."""
+    from openal_soft_tpu_torch.al import api as al
+
+    return al.alcLoopbackOpenDeviceSOFT(RATE, channels, "float32",
+                                        hrtf=hrtf, capacity=capacity,
+                                        device=device, **dev_kw)
+
+
+def api_scene(dev, n_voices: int, loaded: bool = False,
+              filtered: bool = False):
+    """bench_scene's scene on an open device (loopback or playback), built
+    only through the port's AL/ALC entry points with bench_scene's seed
+    and draw order.  Returns the context and the source ids."""
+    from openal_soft_tpu_torch.al import api as al
+
+    ctx = al.alcCreateContext(dev)
+    al.alcMakeContextCurrent(ctx)
+    slot = send_flt = 0
+    if loaded:
+        slot = al.alGenAuxiliaryEffectSlots()
+        eff = al.alGenEffects()
+        al.alEffecti(eff, al.AL_EFFECT_TYPE, AL_EFFECT_EAXREVERB)
+        al.alAuxiliaryEffectSloti(slot, al.AL_EFFECTSLOT_EFFECT, eff)
+        if filtered:
+            send_flt = al.alGenFilters()
+            al.alFilteri(send_flt, al.AL_FILTER_TYPE, AL_FILTER_LOWPASS)
+            al.alFilterf(send_flt, AL_LOWPASS_GAINHF, 0.5)
+    rng = np.random.default_rng(42)
+    bufs = []
+    for tone in tone_pool(N_TONES):
+        bid = al.alGenBuffers()
+        al.alBufferData(bid, al.AL_FORMAT_MONO_FLOAT32, tone, RATE)
+        bufs.append(bid)
+    sids = []
+    for i in range(n_voices):
+        pos = rng.standard_normal(3) * 3.0
+        pitch = float(2.0 ** rng.uniform(-1, 1)) if loaded else None
+        gain_hf = float(rng.uniform(0.1, 0.9)) if filtered else None
+        sid = al.alGenSources()
+        al.alSourcei(sid, al.AL_BUFFER, bufs[i % N_TONES])
+        al.alSourcei(sid, al.AL_LOOPING, al.AL_TRUE)
+        if filtered:
+            flt = al.alGenFilters()
+            al.alFilteri(flt, al.AL_FILTER_TYPE, AL_FILTER_LOWPASS)
+            al.alFilterf(flt, AL_LOWPASS_GAINHF, gain_hf)
+            al.alSourcei(sid, al.AL_DIRECT_FILTER, flt)
+        al.alSource3f(sid, al.AL_POSITION, *pos)
+        if loaded:
+            al.alSourcef(sid, al.AL_PITCH, pitch)
+            al.alSource3i(sid, al.AL_AUXILIARY_SEND_FILTER, slot, 0,
+                          send_flt)
+        al.alSourcePlay(sid)
+        sids.append(sid)
+    return ctx, sids
 
 
 def set_direct_lowpass(ctx, src, gain_hf: float) -> None:
@@ -2074,6 +2158,261 @@ def phase_fx_parity(wrappers: dict, seed: int) -> None:
             raise AssertionError(f"{label} skipped a kernel: {grew}")
 
 
+# --- the AL/ALC entry points and the playback lifecycle (phases 26-28) -------
+
+# The torch device of phases 26-28's full-width scenes, and the type that
+# alcOpenDevice's default device must resolve to.
+CARD = "cuda"
+API_SCENES = {"best_case": ({}, ("resample_unit",)),
+              "speakers_filtered": ({"loaded": True, "filtered": True,
+                                     "hrtf": False},
+                                    ("resample_gen", "reverb", "biquad"))}
+
+
+def reset_counts(wrappers: dict) -> None:
+    for name in KERNELS:
+        wrappers[name].launches = 0
+
+
+def counts(wrappers: dict) -> dict:
+    return {name: wrappers[name].launches for name in KERNELS}
+
+
+def wall(fn):
+    """(fn's result, its wall seconds); a render ends in a host copy."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_api(wrappers: dict, smi: str) -> np.ndarray:
+    """Phase 26: best_case and speakers_filtered at full width built only
+    through the AL/ALC entry points, each bit-equal to bench_scene's build
+    of the same scene over a warm and a timed 512-block call.  Returns the
+    API speakers_filtered scene's first call, for phase 27."""
+    from openal_soft_tpu_torch.al import api as al
+
+    frames = CHUNK_BLOCKS * BLOCK
+    first = None
+    for scene, (kw, need) in API_SCENES.items():
+        direct, direct_s = wall(lambda: bench_scene(N_VOICES, N_VOICES,
+                                                    CARD, **kw))
+        dev, api_s = wall(lambda: api_open_loopback(
+            N_VOICES, CARD, hrtf=kw.get("hrtf", True)))
+        (ctx, sids), scene_s = wall(lambda: api_scene(
+            dev, N_VOICES, loaded=kw.get("loaded", False),
+            filtered=kw.get("filtered", False)))
+        api_s += scene_s
+        err = al.alGetError()
+        warm = (al.alcRenderSamplesSOFT(dev, frames),
+                direct.render_samples(frames))
+        before = [al.alGetSourcei(s, al.AL_SAMPLE_OFFSET) for s in sids]
+        reset_counts(wrappers)
+        out_api, api_r = wall(lambda: al.alcRenderSamplesSOFT(dev, frames))
+        launches = counts(wrappers)
+        out_direct, direct_r = wall(lambda: direct.render_samples(frames))
+        diff = max(float(np.abs(warm[0] - warm[1]).max()),
+                   float(np.abs(out_api - out_direct).max()))
+        (states, offsets), poll_s = wall(lambda: (
+            [al.alGetSourcei(s, al.AL_SOURCE_STATE) for s in sids],
+            [al.alGetSourcei(s, al.AL_SAMPLE_OFFSET) for s in sids]))
+        clock = al.alcGetInteger64vSOFT(dev, al.ALC_DEVICE_CLOCK_SOFT)
+        advanced = sum(a != b for a, b in zip(offsets, before))
+        emit({"phase": "api", "scene": scene, "voices": N_VOICES,
+              "frames": frames, "build_s": {"api": api_s,
+                                            "direct": direct_s},
+              "render_s": {"api": api_r, "direct": direct_r},
+              "x_realtime": {"api": (frames / RATE) / api_r,
+                             "direct": (frames / RATE) / direct_r},
+              "max_abs_diff": diff, "al_error": err,
+              "playing": states.count(al.AL_PLAYING),
+              "offsets_advanced": advanced, "device_clock_ns": clock,
+              "poll_ms": 1e3 * poll_s, "launches": launches,
+              "peak": float(np.abs(out_api).max()), "nvidia_smi": smi})
+        if diff != 0.0 or err != al.AL_NO_ERROR:
+            raise AssertionError(f"{scene} through the API differs from "
+                                 f"the direct build by {diff} (AL error "
+                                 f"{err:#x})")
+        if (states.count(al.AL_PLAYING) != N_VOICES
+                or advanced != N_VOICES
+                or clock != 2 * frames * 1_000_000_000 // RATE):
+            raise AssertionError(f"{scene}: {states.count(al.AL_PLAYING)} "
+                                 f"playing, {advanced} offsets advanced, "
+                                 f"clock {clock}")
+        if not (np.isfinite(out_api).all() and np.abs(out_api).max() > 0):
+            raise AssertionError(f"{scene} through the API is silent or "
+                                 "not finite")
+        if not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"{scene} through the API skipped a "
+                                 f"kernel: {launches}")
+        if scene == "speakers_filtered":
+            first = warm[0]
+        del direct, dev, ctx, warm, out_api, out_direct
+    return first
+
+
+def eax_scene(n_voices: int, device: str):
+    """The API speakers_filtered scene with EAX 2.0 on top: the hangar
+    environment, and -1200 mB of occlusion on every other source."""
+    from openal_soft_tpu_torch.al import api as al
+    from openal_soft_tpu_torch.al import eax
+
+    dev = api_open_loopback(n_voices, device, hrtf=False)
+    ctx, sids = api_scene(dev, n_voices, loaded=True, filtered=True)
+    al.EAXSet(eax.DSPROPSETID_EAX20_ListenerProperties, eax.L20_ENVIRONMENT,
+              0, 10)
+    for sid in sids[::2]:
+        al.EAXSet(eax.DSPROPSETID_EAX20_BufferProperties, eax.B20_OCCLUSION,
+                  sid, -1200)
+    return dev
+
+
+def phase_eax(wrappers: dict, smi: str, plain: np.ndarray) -> None:
+    """Phase 27: the EAX scene at full width renders finite and unlike the
+    same scene without EAX (``plain``, phase 26's first call); at 64
+    voices the card agrees with the CPU within SPEAKERS_TOL."""
+    from openal_soft_tpu_torch.al import api as al
+
+    frames = CHUNK_BLOCKS * BLOCK
+    dev, build_s = wall(lambda: eax_scene(N_VOICES, CARD))
+    err = al.alGetError()
+    reset_counts(wrappers)
+    out, render_s = wall(lambda: al.alcRenderSamplesSOFT(dev, frames))
+    launches = counts(wrappers)
+    diff = float(np.abs(out - plain).max())
+    emit({"phase": "eax", "voices": N_VOICES, "frames": frames,
+          "build_s": build_s, "render_s": render_s,
+          "x_realtime": (frames / RATE) / render_s, "slots": len(dev.slots),
+          "max_abs_diff_without_eax": diff, "al_error": err,
+          "launches": launches, "peak": float(np.abs(out).max()),
+          "nvidia_smi": smi})
+    if not (np.isfinite(out).all() and diff > 1e-3
+            and err == al.AL_NO_ERROR):
+        raise AssertionError(f"EAX scene: finite {np.isfinite(out).all()}, "
+                             f"{diff} from the plain scene, AL error {err}")
+    if not all(launches[k] > 0 for k in ("resample_gen", "reverb",
+                                         "biquad")):
+        raise AssertionError(f"EAX scene skipped a kernel: {launches}")
+    del dev, out
+    g, c = eax_scene(64, CARD), eax_scene(64, "cpu")
+    for n, path in ((8192, "multi-block"), (4096, "per-block"),
+                    (100, "odd"), (924, "odd")):
+        a, b = g.render_samples(n), c.render_samples(n)
+        err = float(np.abs(a - b).max())
+        emit({"phase": "parity", "scene": "eax", "frames": n, "path": path,
+              "max_abs_err": err, "tol": SPEAKERS_TOL,
+              "peak": float(np.abs(b).max())})
+        if not (np.isfinite(a).all() and err <= SPEAKERS_TOL):
+            raise AssertionError(f"EAX GPU vs CPU port at {n} frames: {err}")
+
+
+def phase_playback(wrappers: dict, smi: str, periods: int = 8) -> None:
+    """Phase 28: the wave writer and the null output through alcOpenDevice
+    with the API speakers_filtered scene at full width.  The wave data
+    before a reset is bit-equal to a loopback device's render in the same
+    1024-frame calls; after alcResetDeviceSOFT the voices play on, on the
+    card, connected.  The null output's thread runs ~2 s; its share of
+    realtime is printed.  handle_disconnect drops ALC_CONNECTED to 0,
+    delivers the event and stops the voices."""
+    from openal_soft_tpu_torch.al import api as al
+    from openal_soft_tpu_torch.alc import lifecycle
+
+    attrs = [al.ALC_MONO_SOURCES, N_VOICES, 0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "out.wav")
+        with alsoft_conf(f"[wave]\nfile = {path}\n"):
+            dev = al.alcOpenDevice(lifecycle.WAVE_DEVICE_NAME, attrs=attrs)
+            al.alcDevicePauseSOFT(dev)
+            (ctx, sids), build_s = wall(lambda: api_scene(
+                dev, N_VOICES, loaded=True, filtered=True))
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            for _ in range(periods):
+                dev.backend.render(BLOCK)
+                # The mixer thread renders whatever periods fall between
+                # resume and pause; the file holds them all, in order.
+                al.alcDevicePauseSOFT(dev)
+                al.alcDeviceResumeSOFT(dev)
+                al.alcDevicePauseSOFT(dev)
+            wave_s = time.perf_counter() - t0
+            launches = counts(wrappers)
+            dev.backend._fh.flush()
+            written = dev.backend._frames_written
+            data = np.fromfile(path, np.float32, offset=44)[:2 * written]
+            before = [al.alGetSourcei(s, al.AL_SAMPLE_OFFSET) for s in sids]
+            lb = api_open_loopback(N_VOICES, CARD, hrtf=False)
+            api_scene(lb, N_VOICES, loaded=True, filtered=True)
+            want = np.concatenate([lb.render_samples(BLOCK)
+                                   for _ in range(written // BLOCK)])
+            diff = float(np.abs(data.reshape(-1, 2) - want).max())
+            del lb, want
+            al.alcMakeContextCurrent(ctx)
+            al.alcResetDeviceSOFT(dev)
+            dev.backend.render(BLOCK)
+            states = [al.alGetSourcei(s, al.AL_SOURCE_STATE) for s in sids]
+            after = [al.alGetSourcei(s, al.AL_SAMPLE_OFFSET) for s in sids]
+            moved = sum(a != b for a, b in zip(after, before))
+            on = dev.render.torch_device.type
+            connected = al.alcGetIntegerv(dev, al.ALC_CONNECTED)
+            al.alcCloseDevice(dev)
+            del dev, ctx
+    emit({"phase": "playback", "device": "wave", "voices": N_VOICES,
+          "periods": periods, "frames_written": written,
+          "build_s": build_s, "wave_s": wave_s,
+          "max_abs_diff_vs_loopback": diff, "launches": launches,
+          "after_reset": {"playing": states.count(al.AL_PLAYING),
+                          "offsets_moved": moved, "torch_device": on,
+                          "connected": connected},
+          "nvidia_smi": smi})
+    if diff != 0.0 or written < periods * BLOCK or written % BLOCK:
+        raise AssertionError(f"wave device: {written} frames, {diff} from "
+                             "the loopback render")
+    if not all(launches[k] > 0 for k in ("resample_gen", "reverb",
+                                         "biquad")):
+        raise AssertionError(f"wave device skipped a kernel: {launches}")
+    if (states.count(al.AL_PLAYING) != N_VOICES or moved != N_VOICES
+            or on != CARD or connected != 1):
+        raise AssertionError(f"after the reset: {states.count(al.AL_PLAYING)}"
+                             f" playing, {moved} offsets moved, on {on}, "
+                             f"connected {connected}")
+
+    dev = al.alcOpenDevice(lifecycle.NULL_DEVICE_NAME, attrs=attrs)
+    al.alcDevicePauseSOFT(dev)
+    ctx, sids = api_scene(dev, N_VOICES, loaded=True, filtered=True)
+    dev.render.render_samples(BLOCK)                 # warm
+    start = dev.backend.frames_rendered
+    t0 = time.perf_counter()
+    al.alcDeviceResumeSOFT(dev)
+    time.sleep(2.0)
+    al.alcDevicePauseSOFT(dev)
+    null_s = time.perf_counter() - t0
+    rendered = dev.backend.frames_rendered - start
+    share = rendered / (null_s * RATE)
+    events = []
+    al.alEventCallbackSOFT(lambda *a: events.append(a))
+    al.alEventControlSOFT([al.AL_EVENT_TYPE_DISCONNECTED_SOFT], True)
+    dev.render.handle_disconnect("output lost")
+    connected = al.alcGetIntegerv(dev, al.ALC_CONNECTED)
+    deadline = time.time() + 10.0
+    while not events and time.time() < deadline:
+        time.sleep(0.01)
+    stopped = [al.alGetSourcei(s, al.AL_SOURCE_STATE)
+               for s in sids].count(al.AL_STOPPED)
+    tail = dev.render.render_samples(BLOCK)
+    al.alcCloseDevice(dev)
+    emit({"phase": "playback", "device": "null", "voices": N_VOICES,
+          "wall_s": null_s, "frames_rendered": rendered,
+          "realtime_share": share, "connected_after_disconnect": connected,
+          "disconnect_events": [list(e) for e in events],
+          "stopped": stopped, "nvidia_smi": smi})
+    if rendered <= 0 or not np.isfinite(tail).all():
+        raise AssertionError(f"null device rendered {rendered} frames")
+    if (connected != 0 or stopped != N_VOICES
+            or events != [("disconnected", 0, "output lost")]):
+        raise AssertionError(f"disconnect: connected {connected}, "
+                             f"{stopped} stopped, events {events}")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the HBM rate against the
     operations over the fp32 peak, whichever takes longer."""
@@ -2450,6 +2789,12 @@ def main() -> int:
     # the port on the CPU
     phase_fx_rack(wrappers, report, smi, seed)
     phase_fx_parity(wrappers, seed)
+
+    # 26-28. the AL/ALC entry points, EAX and the playback lifecycle
+    plain = phase_api(wrappers, smi)
+    phase_eax(wrappers, smi, plain)
+    del plain
+    phase_playback(wrappers, smi)
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

@@ -494,6 +494,9 @@ class RenderDevice:
         # serialize on this lock (the mutex analog of the reference's
         # wait-free prop-swap discipline, alu.cpp:2009-2013).
         self.lock = threading.RLock()
+        # ALC_CONNECTED: cleared once by handle_disconnect when the backend
+        # loses its output.
+        self.connected = True
         self._free_rows = list(range(capacity - 1, -1, -1))
         self._bank = tables.weight_bank()          # host numpy
         self._bank_dev = None                      # torch copy, on first use
@@ -1412,6 +1415,31 @@ class RenderDevice:
             self._clock_samples = int(snap["clock"])
             self._uhj_adopt = True
             self._cfg_dev = None
+
+    def handle_disconnect(self, msg: str = "") -> None:
+        """Backend/device loss (doDisconnect, alc/alu.cpp:2499-2533).
+
+        Marks the device disconnected, posts a disconnect event to every
+        context, and stops all playing voices unless a context holds them
+        (AL_SOFTX_hold_on_disconnect, core/context.h:94)."""
+        with self.lock:
+            if not self.connected:
+                return
+            self.connected = False
+            log.err("device disconnected: %s", msg)
+            for ctx in self.contexts:
+                ctx._emit("disconnected", 0, msg)
+                if getattr(ctx, "hold_on_disconnect", False):
+                    continue
+                for v in ctx.voices:
+                    if v.source_id:
+                        src = ctx.sources.get(v.source_id)
+                        if src is not None:
+                            src.voice_ended()
+                        v.source_id = 0
+                    if v.state == PlayState.PLAYING:
+                        v.state = PlayState.STOPPING
+                        self.mark_config_dirty()
 
     def clock_ns(self) -> int:
         """ALC_DEVICE_CLOCK_SOFT: nanoseconds of samples rendered."""

@@ -84,6 +84,41 @@ src.play()
 out = spk.render_samples(2048)
 assert "gate:nofilt" not in spk._graph_gates()
 assert out.shape == (2048, 2) and np.isfinite(out).all() and out.any()
+# The filtered scene through the AL/ALC entry points, then a null playback
+# device that renders on its own thread until it is closed.
+import time
+from openal_soft_tpu_torch.al import api as al
+adev = al.alcLoopbackOpenDeviceSOFT(48000, "stereo", "float32", capacity=4,
+                                    device="cpu")
+al.alcMakeContextCurrent(al.alcCreateContext(adev))
+abuf = al.alGenBuffers()
+al.alBufferData(abuf, al.AL_FORMAT_MONO_FLOAT32,
+                (0.3 * np.sin(np.arange(4800) * 0.05)).astype(np.float32),
+                48000)
+aslot, aeff, aflt = (al.alGenAuxiliaryEffectSlots(), al.alGenEffects(),
+                     al.alGenFilters())
+al.alEffecti(aeff, al.AL_EFFECT_TYPE, 0x8000)            # EAXReverb
+al.alAuxiliaryEffectSloti(aslot, al.AL_EFFECTSLOT_EFFECT, aeff)
+al.alFilteri(aflt, al.AL_FILTER_TYPE, 1)                 # lowpass
+al.alFilterf(aflt, 2, 0.4)                               # gain_hf
+asrc = al.alGenSources()
+al.alSourcei(asrc, al.AL_BUFFER, abuf)
+al.alSourcei(asrc, al.AL_LOOPING, al.AL_TRUE)
+al.alSourcei(asrc, al.AL_DIRECT_FILTER, aflt)
+al.alSource3f(asrc, al.AL_POSITION, 1.0, 0.0, -1.0)
+al.alSourcef(asrc, al.AL_PITCH, 1.3)
+al.alSource3i(asrc, al.AL_AUXILIARY_SEND_FILTER, aslot, 0, aflt)
+al.alSourcePlay(asrc)
+out = al.alcRenderSamplesSOFT(adev, 2048)
+assert al.alGetError() == al.AL_NO_ERROR
+assert out.shape == (2048, 2) and np.isfinite(out).all() and out.any()
+pdev = al.alcOpenDevice("Null Output", capacity=4, device="cpu")
+al.alcMakeContextCurrent(al.alcCreateContext(pdev))
+deadline = time.time() + 30
+while pdev.backend.frames_rendered == 0 and time.time() < deadline:
+    time.sleep(0.01)
+assert pdev.backend.frames_rendered > 0
+al.alcCloseDevice(pdev)
 """
 
 _BLOCKED = r"""
@@ -105,6 +140,8 @@ def test_every_port_module_imports_and_renders_with_jax_blocked():
     mods = _port_modules()
     assert "openal_soft_tpu_torch.core.device" in mods
     assert "openal_soft_tpu_torch.effects.reverb" in mods
+    assert "openal_soft_tpu_torch.al.api" in mods
+    assert "openal_soft_tpu_torch.alc.lifecycle" in mods
     res = subprocess.run([sys.executable, "-c", _BLOCKED, *mods],
                          capture_output=True, text=True, cwd=ROOT,
                          timeout=300)

@@ -46,6 +46,9 @@ from openal_soft_tpu.alc.device import LoopbackDevice as JaxLoopback
 from openal_soft_tpu_torch.alc import config as t_conf
 from openal_soft_tpu_torch.alc.device import LoopbackDevice as TorchLoopback
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
+# The JAX device renders from private copies of its host table (ROADMAP
+# C10: its render could read the table while finish_chunk advanced it).
+from tests.test_torch_api import jax_renders_from_private_copies  # noqa: F401
 
 RATE = 48000
 SMALL = 128
