@@ -10,7 +10,9 @@ result:
 
   1. env        the card (nvidia-smi name and power limit), torch and CUDA
   2. build      nvcc builds every kernel from csrc/, all at once, with each
-                kernel's registers and spills (-Xptxas -v)
+                kernel's registers and spills (-Xptxas -v); beside them g++
+                and gcc build the C ABI (libopenal_torch.so, test_shim,
+                scene_client) and the output limiter
   3. kernel     resample_unit against its plain version on voices with loop
                 seams, short loops, backward wraps, end clamps, pre-start
                 silence and empty sources; then UNIT_CASES: ragged W (1,
@@ -149,6 +151,35 @@ result:
                 connected; the null output's thread for ~2 s (its share of
                 realtime); handle_disconnect: ALC_CONNECTED 0, the event
                 delivered, every voice stopped
+ 29. uhj_tools  a seeded 120-s 48 kHz FuMa B-Format track: the UHJ encoder's
+                command line at iir (biquad must launch), encode() at
+                fir256 and fir512, the iir result through the decoder's
+                command line at fir256 and fir512; every output finite,
+                nonzero, full length; the head of each (2 s at iir, 10 s
+                otherwise) on the card against the CPU, <= UHJ_TOL; wall
+                time and x realtime per tier
+ 30. makemhr    a seeded HRIR set on the MIT KEMAR grid (44.1 kHz, 512 taps,
+                19 elevations, 828 directions, measured from -40 degrees:
+                710 HRIRs, the gap synthesized) through process_hrir_set
+                at the module's defaults into an .mhr, selected through
+                alsoft.conf (hrtf-paths, default-hrtf); best_case at 4096
+                voices on it, a warm and a timed 512-block call:
+                resample_unit must launch, the output finite, nonzero and
+                unlike the default data set's; makemhr's host seconds
+ 31. openal_info  the lister's command line on the card: exit 0, the card's
+                name, 17 effects, 113 presets
+ 32. c_abi      test_shim on the card (capture from a fake libasound): PEAK=,
+                STREAM_PEAK=, CAPTURED=, EAX_DECAY=; best_case at 4096
+                voices built through the C ABI from phase 26's seed and
+                draw order by the C program scene_client and by this
+                process through the same library (ctypes), each bit-equal
+                to the al.api build over a warm and a timed 512-block
+                call, resample_unit launched in the ctypes call; build time
+                and x realtime through C and Python; the int16 output's
+                limiter is the native library
+ 33. examples   the 14 examples' main() on the card, <= 2 s of audio, a
+                seeded WAV and LAF file as inputs; every WAV written is
+                nonzero; alreverb and almultireverb launch the reverb
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
@@ -1126,17 +1157,35 @@ def ptxas_lines(name: str) -> list[str]:
 
 
 def build_all() -> None:
-    """Phase 2: one nvcc per source, all started together."""
+    """Phase 2: one nvcc per source, all started together, beside g++ and
+    gcc building the C ABI (libopenal_torch.so and its two C clients) and
+    the output limiter for phase 32."""
+    from openal_soft_tpu_torch.native import build as native
     from openal_soft_tpu_torch.ops.kernels import _build
 
+    def native_all() -> dict:
+        t0 = time.perf_counter()
+        libs = {"limiter": native.build_limiter(),
+                **{c: native.build_client(c) for c in native.CLIENTS}}
+        NATIVE_BUILD["seconds"] = time.perf_counter() - t0
+        return libs
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        c_abi = pool.submit(native_all)
         libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        NATIVE_BUILD["files"] = {k: str(v) for k, v in c_abi.result().items()}
     for name in KERNELS:
         _build.load_library(name)
         emit({"phase": "build", "kernel": name, "library": libs[name].name,
               "seconds": seconds, "ptxas": ptxas_lines(name)})
+    emit({"phase": "build", "c_abi": NATIVE_BUILD["files"],
+          "seconds": NATIVE_BUILD["seconds"]})
+
+
+# The C ABI's build (phase 2), read by phase 32.
+NATIVE_BUILD: dict = {}
 
 
 def check_unit_kernel(cuda) -> float:
@@ -2413,6 +2462,413 @@ def phase_playback(wrappers: dict, smi: str, periods: int = 8) -> None:
                              f"{stopped} stopped, events {events}")
 
 
+# --- the offline tools, the C ABI and the examples (phases 29-33) ----------
+
+UHJ_SECONDS = 120          # an album track, 48 kHz FuMa B-Format
+UHJ_CHECK_S = {"iir": 2, "fir256": 10, "fir512": 10}   # card vs CPU window
+KEMAR_AZ = (1, 12, 24, 36, 45, 56, 60, 72, 72, 72, 72, 72, 60, 56, 45, 36,
+            24, 12, 1)          # MIT KEMAR's elevations, -90..90 degrees
+KEMAR_EV_START = 5              # measured from -40 degrees up: 710 HRIRs
+EXAMPLE_SECONDS = 2.0
+
+
+def bformat_signal(seconds: float, seed: int) -> np.ndarray:
+    """[frames, 4] FuMa WXYZ: three tones circling the listener at
+    different rates and heights over a quiet noise bed."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * RATE)) / RATE
+    out = 0.01 * rng.standard_normal((t.size, 4))
+    for f, rate_hz, elev in ((220.0, 0.05, 0.0), (330.0, -0.11, 0.4),
+                             (523.0, 0.23, -0.3)):
+        s = 0.2 * np.sin(2 * np.pi * f * t) * (0.6 + 0.4 * np.sin(
+            2 * np.pi * rng.uniform(0.05, 0.3) * t))
+        az = 2 * np.pi * rate_hz * t + rng.uniform(0, 2 * np.pi)
+        out += np.stack([s * np.sqrt(0.5), s * np.cos(az) * np.cos(elev),
+                         s * np.sin(az) * np.cos(elev),
+                         s * np.sin(elev) * np.ones_like(t)], 1)
+    return out.astype(np.float32)
+
+
+def phase_uhj_tools(wrappers: dict, smi: str) -> None:
+    """Phase 29: the UHJ encoder and decoder over a 120-s B-Format track:
+    the iir tier through the tool's command line (K7 must launch), fir256
+    and fir512 through encode(), the iir result decoded at both tiers;
+    each tier's head on the card against the CPU within UHJ_TOL."""
+    from openal_soft_tpu_torch.utils import uhjdecoder as dec
+    from openal_soft_tpu_torch.utils import uhjencoder as enc
+
+    sig = bformat_signal(UHJ_SECONDS, 29)
+    seconds = sig.shape[0] / RATE
+    with tempfile.TemporaryDirectory() as d:
+        src, uhj = os.path.join(d, "track.amb.wav"), os.path.join(d, "u.wav")
+        enc._write_wav(src, sig, RATE)
+        data, _ = enc._read_wav(src)
+        reset_counts(wrappers)
+        _, iir_s = wall(lambda: enc.main([src, uhj, "--tier", "iir",
+                                              "--device", CARD]))
+        launches = counts(wrappers)
+        encoded, _ = enc._read_wav(uhj)
+        results = {"encode iir": (encoded, iir_s)}
+        for tier in ("fir256", "fir512"):
+            results[f"encode {tier}"] = wall(lambda: enc.encode(data, tier,
+                                                              CARD))
+        for tier in ("fir256", "fir512"):
+            out = os.path.join(d, f"b_{tier}.wav")
+            _, dec_s = wall(lambda: dec.main([uhj, out, "--tier", tier,
+                                                 "--device", CARD]))
+            results[f"decode {tier}"] = (dec._read_wav(out)[0], dec_s)
+    for key, (out, sec) in results.items():
+        what, tier = key.split()
+        m = int(UHJ_CHECK_S[tier] * RATE)
+        fn = (lambda x, dev: enc.encode(x, tier, dev)) if what == "encode" \
+            else (lambda x, dev: dec.decode(x, tier, dev))
+        head = (data if what == "encode" else encoded)[:m]
+        err = float(np.abs(fn(head, CARD) - fn(head, "cpu")).max())
+        finite = bool(np.isfinite(out).all())
+        peak = float(np.abs(out).max())
+        emit({"phase": "uhj_tools", "tool": what, "tier": tier,
+              "seconds": seconds, "frames": int(out.shape[0]),
+              "channels": int(out.shape[1]), "wall_s": sec,
+              "x_realtime": seconds / sec, "check_s": m / RATE,
+              "max_abs_err_vs_cpu": err, "tol": UHJ_TOL, "peak": peak,
+              **({"launches": launches} if key == "encode iir" else {}),
+              "nvidia_smi": smi})
+        if not (finite and peak > 0.0 and out.shape[0] == sig.shape[0]):
+            raise AssertionError(f"{key}: finite {finite}, peak {peak}, "
+                                 f"shape {out.shape}")
+        if not err <= UHJ_TOL:
+            raise AssertionError(f"{key}: card vs CPU {err} > {UHJ_TOL}")
+    if launches["biquad"] <= 0:
+        raise AssertionError(f"the iir encoder skipped biquad: {launches}")
+
+
+def kemar_set(seed: int):
+    """A seeded HRIR set on the MIT KEMAR grid (44.1 kHz, 512 taps, one
+    field at 1.4 m): each measured ear's response is decaying noise after
+    an onset that grows with the ear's distance from the source; the rings
+    below KEMAR_EV_START are left to makemhr to synthesize."""
+    from openal_soft_tpu_torch.utils import makemhr
+
+    rng = np.random.default_rng(seed)
+    taps, rate = 512, 44100
+    irs = np.zeros((sum(KEMAR_AZ), 2, taps))
+    n = np.arange(taps)
+    row = 0
+    for ei, azn in enumerate(KEMAR_AZ):
+        elev = -np.pi / 2 + np.pi * ei / (len(KEMAR_AZ) - 1)
+        for ai in range(azn):
+            lat = np.sin(2 * np.pi * ai / azn) * np.cos(elev)
+            for ear, side in ((0, 1.0), (1, -1.0)):
+                onset = 24.0 + 14.0 * (1.0 + side * lat)
+                env = np.exp(-np.maximum(n - onset, 0.0) / 18.0) * (n >= onset)
+                if ei >= KEMAR_EV_START:
+                    irs[row + ai, ear] = (env * rng.standard_normal(taps)
+                                          * (1.2 - 0.5 * side * lat))
+        row += azn
+    return makemhr.HrirSet(rate, [(1.4, list(KEMAR_AZ))], irs,
+                           ev_starts=[KEMAR_EV_START])
+
+
+def phase_makemhr(wrappers: dict, smi: str) -> None:
+    """Phase 30: makemhr on a KEMAR-grid set (the gap below -40 degrees
+    synthesized), selected through alsoft.conf, rendering best_case at
+    full width: K1 must launch, and the output must differ from the same
+    scene on the default data set."""
+    from openal_soft_tpu_torch.utils import makemhr
+
+    frames = CHUNK_BLOCKS * BLOCK
+    with tempfile.TemporaryDirectory() as d:
+        hset = kemar_set(30)
+        path = os.path.join(d, "kemar_synth.mhr")
+        _, host_s = wall(lambda: makemhr.process_hrir_set(hset, path))
+        size = os.path.getsize(path)
+        with alsoft_conf(f"hrtf-paths = {d}\ndefault-hrtf = kemar_synth\n"):
+            dev, build_s = wall(lambda: bench_scene(N_VOICES, N_VOICES, CARD))
+        hrirs = int(dev.hrtf_store.coeffs.shape[0])
+        warm = dev.render_samples(frames)
+        reset_counts(wrappers)
+        out, render_s = wall(lambda: dev.render_samples(frames))
+        launches = counts(wrappers)
+        del dev
+    base = bench_scene(N_VOICES, N_VOICES, CARD)
+    diff = float(np.abs(base.render_samples(frames) - warm).max())
+    del base
+    finite = bool(np.isfinite(out).all() and np.isfinite(warm).all())
+    peak = float(np.abs(out).max())
+    emit({"phase": "makemhr", "irs": int(hset.irs.shape[0]),
+          "measured": int(sum(KEMAR_AZ[KEMAR_EV_START:])),
+          "ev_start": KEMAR_EV_START, "mhr_bytes": size,
+          "makemhr_host_s": host_s, "store_hrirs": hrirs,
+          "voices": N_VOICES, "frames": frames, "build_s": build_s,
+          "render_s": render_s, "x_realtime": (frames / RATE) / render_s,
+          "launches": launches, "peak": peak,
+          "max_abs_diff_vs_default_set": diff, "nvidia_smi": smi})
+    if hrirs != sum(KEMAR_AZ) or not (finite and peak > 0.0):
+        raise AssertionError(f"makemhr set: {hrirs} HRIRs, finite {finite}, "
+                             f"peak {peak}")
+    if not diff > 1e-3:
+        raise AssertionError(f"the makemhr set renders as the default set "
+                             f"({diff})")
+    if launches["resample_unit"] <= 0:
+        raise AssertionError(f"makemhr best_case skipped resample_unit: "
+                             f"{launches}")
+
+
+def phase_openal_info(smi: str) -> None:
+    """Phase 31: the device lister's command line on the card."""
+    import torch
+
+    res, sec = wall(lambda: subprocess.run(
+        [sys.executable, "-m", "openal_soft_tpu_torch.utils.openal_info",
+         "--device", CARD],
+        capture_output=True, text=True, timeout=300))
+    name = torch.cuda.get_device_name(0)
+    lines = res.stdout.splitlines()
+    effects = next((ln for ln in lines if ln.startswith("effects (")), "")
+    presets = next((ln for ln in lines if ln.startswith("reverb presets")),
+                   "")
+    emit({"phase": "openal_info", "rc": res.returncode, "wall_s": sec,
+          "device_line": next((ln for ln in lines if "device:" in ln), ""),
+          "effects": effects[:40], "presets": presets[:40],
+          "nvidia_smi": smi})
+    if (res.returncode != 0 or name not in res.stdout
+            or not effects.startswith("effects (17)")
+            or not presets.startswith("reverb presets (113)")):
+        raise AssertionError(f"openal_info: rc {res.returncode}\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+
+
+def best_case_voices(n_voices: int) -> np.ndarray:
+    """api_scene's best_case positions: seed 42, one 3-vector draw per
+    voice, scaled by 3."""
+    rng = np.random.default_rng(42)
+    return np.array([rng.standard_normal(3) * 3.0 for _ in range(n_voices)])
+
+
+def cabi_scene(lib, n_voices: int):
+    """best_case through the C ABI from this process (ctypes): the calls
+    scene_client makes.  Returns the device handle."""
+    import ctypes as ct
+
+    u, i, p = ct.c_uint, ct.c_int, ct.c_void_p
+    for name, res, args in (
+            ("alcLoopbackOpenDeviceSOFT", p, [ct.c_char_p]),
+            ("alcCreateContext", p, [p, p]),
+            ("alcMakeContextCurrent", ct.c_char, [p]),
+            ("alGenBuffers", None, [i, ct.POINTER(u)]),
+            ("alBufferData", None, [u, i, p, i, i]),
+            ("alGenSources", None, [i, ct.POINTER(u)]),
+            ("alSourcei", None, [u, i, i]),
+            ("alSource3dSOFT", None, [u, i, ct.c_double, ct.c_double,
+                                      ct.c_double]),
+            ("alSourcePlay", None, [u]),
+            ("alcRenderSamplesSOFT", None, [p, p, i]),
+            ("alcCloseDevice", ct.c_char, [p])):
+        getattr(lib, name).restype = res
+        getattr(lib, name).argtypes = args
+    dev = lib.alcLoopbackOpenDeviceSOFT(None)
+    if not dev:
+        raise AssertionError("alcLoopbackOpenDeviceSOFT returned NULL")
+    attrs = (ct.c_int * 11)(0x1007, RATE, 0x1990, 0x1501, 0x1991, 0x1406,
+                            0x1992, 1, 0x1010, n_voices, 0)
+    lib.alcMakeContextCurrent(lib.alcCreateContext(dev, attrs))
+    bufs = []
+    for tone in tone_pool(N_TONES):
+        b = ct.c_uint()
+        lib.alGenBuffers(1, ct.byref(b))
+        lib.alBufferData(b.value, 0x10010, tone.ctypes.data_as(ct.c_void_p),
+                         tone.nbytes, RATE)
+        bufs.append(b.value)
+    for i, pos in enumerate(best_case_voices(n_voices)):
+        s = ct.c_uint()
+        lib.alGenSources(1, ct.byref(s))
+        lib.alSourcei(s.value, 0x1009, bufs[i % N_TONES])  # AL_BUFFER
+        lib.alSourcei(s.value, 0x1007, 1)                  # AL_LOOPING
+        lib.alSource3dSOFT(s.value, 0x1004, *pos)          # AL_POSITION
+        lib.alSourcePlay(s.value)
+    return dev
+
+
+def cabi_render(lib, dev, frames: int) -> np.ndarray:
+    import ctypes as ct
+
+    out = np.full((frames, 2), np.nan, np.float32)
+    lib.alcRenderSamplesSOFT(dev, out.ctypes.data_as(ct.c_void_p), frames)
+    return out
+
+
+def phase_c_abi(wrappers: dict, smi: str) -> None:
+    """Phase 32: the C ABI on the card.  test_shim's four scenarios (capture
+    from a fake libasound); best_case at full width built by the C program
+    scene_client from phase 26's seed and draw order, and by this process
+    through the same library, both bit-equal to the al.api build over a
+    warm and a timed 512-block call, K1 launched; the int16 output's
+    limiter is the native one."""
+    import ctypes as ct
+
+    from openal_soft_tpu_torch.al import api as al
+    from openal_soft_tpu_torch.alc.device import LoopbackDevice
+    from openal_soft_tpu_torch.native import build as native
+    from openal_soft_tpu_torch.native import scene
+
+    frames = CHUNK_BLOCKS * BLOCK
+    with tempfile.TemporaryDirectory() as d:
+        fake = os.path.join(d, "libfakeasound.so")
+        subprocess.run(["gcc", "-shared", "-fPIC", "-O2", "-o", fake,
+                        os.path.join(os.path.dirname(os.path.abspath(
+                            __file__)), "tests", "fake_alsa.c")],
+                       check=True, timeout=120)
+        shim, shim_s = wall(lambda: subprocess.run(
+            [NATIVE_BUILD["files"]["test_shim"]], capture_output=True,
+            text=True, timeout=600,
+            env=native.client_env(CARD, OPENAL_TPU_ALSA_LIB=fake)))
+        markers = [m for m in ("PEAK=", "STREAM_PEAK=", "CAPTURED=",
+                               "EAX_DECAY=") if m in shim.stdout]
+        emit({"phase": "c_abi", "client": "test_shim", "rc": shim.returncode,
+              "wall_s": shim_s, "markers": markers,
+              "stdout": shim.stdout.strip().splitlines()[-1:],
+              "nvidia_smi": smi})
+        if shim.returncode != 0 or len(markers) != 4:
+            raise AssertionError(f"test_shim rc {shim.returncode}\n"
+                                 f"{shim.stdout}{shim.stderr[-3000:]}")
+
+        path = os.path.join(d, "best_case.scene")
+        scene.write_scene(path, RATE, True, tone_pool(N_TONES),
+                          np.arange(N_VOICES) % N_TONES,
+                          best_case_voices(N_VOICES), None, frames, 2)
+        c_run = scene.run_scene_client(path, CARD)
+
+    dev, py_build_s = wall(lambda: api_open_loopback(N_VOICES, CARD))
+    (ctx, sids), scene_s = wall(lambda: api_scene(dev, N_VOICES))
+    py_build_s += scene_s
+    py_warm, py_warm_s = wall(lambda: al.alcRenderSamplesSOFT(dev, frames))
+    py_out, py_s = wall(lambda: al.alcRenderSamplesSOFT(dev, frames))
+    want = np.concatenate([py_warm, py_out])
+    del dev, ctx, py_warm, py_out
+
+    os.environ["OPENAL_TORCH_DEVICE"] = CARD       # the C ABI's device
+    lib = ct.CDLL(str(native.build_shim()))
+    cdev, ct_build_s = wall(lambda: cabi_scene(lib, N_VOICES))
+    ct_warm = cabi_render(lib, cdev, frames)
+    reset_counts(wrappers)
+    ct_out, ct_s = wall(lambda: cabi_render(lib, cdev, frames))
+    launches = counts(wrappers)
+    lib.alcCloseDevice(cdev)
+    got = np.concatenate([ct_warm, ct_out])
+    del ct_warm, ct_out
+
+    diff_c = float(np.abs(c_run["frames"] - want).max())
+    diff_ct = float(np.abs(got - want).max())
+    lim = LoopbackDevice(RATE, "stereo", "int16", capacity=16, device=CARD)
+    native_limiter = (lim.limiter is not None
+                      and getattr(lim.limiter, "_lib", None) is not None)
+    lim_out = lim.render_samples(4096)
+    secs = frames / RATE
+    emit({"phase": "c_abi", "scene": "best_case", "voices": N_VOICES,
+          "frames": frames, "library_build_s": NATIVE_BUILD["seconds"],
+          "build_s": {"c": c_run["build_s"], "ctypes": ct_build_s,
+                      "python": py_build_s},
+          "render_s": {"c": c_run["render_s"],
+                       "ctypes": ct_s, "python": [py_warm_s, py_s]},
+          "x_realtime": {"c": secs / c_run["render_s"][-1],
+                         "ctypes": secs / ct_s, "python": secs / py_s},
+          "client_wall_s": c_run["wall_s"],
+          "max_abs_diff_vs_python": {"c": diff_c, "ctypes": diff_ct},
+          "launches": launches, "native_limiter": native_limiter,
+          "peak": float(np.abs(want).max()), "nvidia_smi": smi})
+    if diff_c != 0.0 or diff_ct != 0.0:
+        raise AssertionError(f"the C ABI's best_case differs from al.api's: "
+                             f"scene_client {diff_c}, ctypes {diff_ct}")
+    if launches["resample_unit"] <= 0:
+        raise AssertionError(f"the C ABI's best_case skipped resample_unit: "
+                             f"{launches}")
+    if not (native_limiter and lim_out.dtype == np.int16):
+        raise AssertionError("the int16 output's limiter is not the native "
+                             "library")
+
+
+EXAMPLES = ("altonegen", "alhrtf", "alplay", "aldirect", "alconvolve",
+            "aldebug", "allafplay", "allatency", "alloopback",
+            "almultireverb", "alrecord", "alreverb", "alstream",
+            "alstreamcb")
+
+
+def example_args(name: str, d: str, seconds: float) -> tuple[list, str]:
+    """The command line of one example at ``seconds`` of audio, inputs in
+    ``d`` (written by example_inputs); and the WAV it writes, or ""."""
+    out = os.path.join(d, f"{name}.wav")
+    s = str(seconds)
+    args = {"altonegen": ["-s", s, "-o", out], "alhrtf": ["-s", s, "-o", out],
+            "alplay": [os.path.join(d, "in.wav"), "-o", out],
+            "aldirect": ["--name", "Null Output"],
+            "alconvolve": ["-s", s, "-o", out], "aldebug": [],
+            "allafplay": [os.path.join(d, "in.laf"), "-o", out],
+            "allatency": ["--seconds", s],
+            "alloopback": ["-s", s, "-o", out],
+            "almultireverb": ["--seconds", s, "-o", out],
+            "alrecord": ["-s", s, "-o", out],
+            "alreverb": ["-s", s, "-o", out],
+            "alstream": [os.path.join(d, "in.wav"), "-o", out],
+            "alstreamcb": ["--seconds", s, "-o", out]}[name]
+    return args + ["--device", CARD], out if "-o" in args else ""
+
+
+def example_inputs(d: str, seconds: float, seed: int) -> None:
+    """A seeded stereo WAV (a tone and noise) and a three-track LAF file
+    (left, right, LFE) of ``seconds`` each."""
+    from openal_soft_tpu_torch.examples.allafplay import write_laf
+    from openal_soft_tpu_torch.examples.altonegen import _write_wav
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * RATE)) / RATE
+    _write_wav(os.path.join(d, "in.wav"), np.stack(
+        [0.3 * np.sin(2 * np.pi * 330 * t),
+         0.2 * rng.standard_normal(t.size)], 1).astype(np.float32), RATE)
+    write_laf(os.path.join(d, "in.laf"),
+              (0.2 * rng.standard_normal((3, t.size))).astype(np.float32),
+              RATE, [(0.0, 30.0, 0), (0.0, -30.0, 0), (0.0, 0.0, 1)])
+
+
+def wav_peak(path: str) -> float:
+    import wave
+
+    with wave.open(path, "rb") as fh:
+        pcm = np.frombuffer(fh.readframes(fh.getnframes()), "<i2")
+    return float(np.abs(pcm.astype(np.float32)).max() / 32768.0)
+
+
+def phase_examples(wrappers: dict, smi: str) -> None:
+    """Phase 33: each of the 14 examples' main() on the card with <= 2 s of
+    audio and seeded inputs; every WAV written is nonzero; alreverb and
+    almultireverb launch the reverb kernel."""
+    import contextlib as cl
+    import importlib
+    import io
+
+    with tempfile.TemporaryDirectory() as d:
+        example_inputs(d, EXAMPLE_SECONDS, 33)
+        for name in EXAMPLES:
+            mod = importlib.import_module(
+                f"openal_soft_tpu_torch.examples.{name}")
+            args, out = example_args(name, d, EXAMPLE_SECONDS)
+            text = io.StringIO()
+            reset_counts(wrappers)
+            with cl.redirect_stdout(text):
+                _, sec = wall(lambda: mod.main(args))
+            launches = counts(wrappers)
+            peak = wav_peak(out) if out else None
+            emit({"phase": "examples", "example": name, "wall_s": sec,
+                  "wav_peak": peak,
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "last_line": text.getvalue().strip().splitlines()[-1:],
+                  "nvidia_smi": smi})
+            if out and not peak > 0.0:
+                raise AssertionError(f"{name} wrote a silent {out}")
+            if name in ("alreverb", "almultireverb") \
+                    and launches["reverb"] <= 0:
+                raise AssertionError(f"{name} skipped reverb: {launches}")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the HBM rate against the
     operations over the fp32 peak, whichever takes longer."""
@@ -2795,6 +3251,13 @@ def main() -> int:
     phase_eax(wrappers, smi, plain)
     del plain
     phase_playback(wrappers, smi)
+
+    # 29-33. the offline tools, the C ABI and the examples
+    phase_uhj_tools(wrappers, smi)
+    phase_makemhr(wrappers, smi)
+    phase_openal_info(smi)
+    phase_c_abi(wrappers, smi)
+    phase_examples(wrappers, smi)
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

@@ -5,11 +5,12 @@ block: post-process decode -> Compressor::process (core/mastering.cpp) ->
 ApplyDistanceComp -> ApplyDither -> Write<T> quantization.
 
 The limiter's gain computer is a sequential scalar recurrence (three
-coupled state variables with per-sample nonlinear automation), so it is a
-poor fit for the TPU's vector units; it runs as native C++ on the host
-(native/limiter.cpp, built on demand with g++), one call per rendered
-block on the decoded [frames, channels] float32 output.  A pure-Python
-port serves as fallback and as the semantic reference for tests.
+coupled state variables with per-sample nonlinear automation), so it runs
+as native C++ on the host (the port's own native/limiter.cpp, built on
+demand with g++ into the package's _build/), one call per rendered block
+on the decoded [frames, channels] float32 output.  Where g++ exists, a
+build or load that fails raises; only a host without g++ renders through
+the pure-Python port, which is also the semantic reference for tests.
 
 Dither is the reference's paired-LCG whitenoise (alu.cpp:2294-2318,
 seed 22222); the LCG is affine mod 2^32, so the whole per-block draw
@@ -20,9 +21,7 @@ sequential loop.
 from __future__ import annotations
 
 import ctypes as ct
-import os
-import pathlib
-import subprocess
+import shutil
 
 import numpy as np
 
@@ -35,26 +34,13 @@ _INV_RANGE = 1.0 / 4294967295.0    # 1 / UINT_MAX
 
 
 def _native_lib():
-    """Build (once) and load native/limiter.cpp; None if unavailable.
-
-    The library is built into the package's own ``_build/`` directory."""
-    pkg = pathlib.Path(__file__).resolve().parents[1]
-    src = pkg.parent / "native" / "limiter.cpp"
-    so = pkg / "_build" / "libopenal_tpu_native.so"
-    if not so.exists() or (src.exists() and src.stat().st_mtime > so.stat().st_mtime):
-        if not src.exists():
-            return None
-        try:
-            so.parent.mkdir(parents=True, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", str(so), str(src)],
-                check=True, capture_output=True)
-        except Exception:
-            return None
-    try:
-        lib = ct.CDLL(str(so))
-    except OSError:
+    """Build (once) and load the port's native/limiter.cpp; None only where
+    no g++ exists.  A failed build or load raises."""
+    if shutil.which("g++") is None:
         return None
+    from ..native import build
+
+    lib = ct.CDLL(str(build.build_limiter()))
     lib.al_limiter_create.restype = ct.c_void_p
     lib.al_limiter_create.argtypes = [ct.c_int, ct.c_float, ct.c_float]
     lib.al_limiter_destroy.argtypes = [ct.c_void_p]
@@ -71,8 +57,8 @@ _LIB_TRIED = False
 def _get_lib():
     global _LIB, _LIB_TRIED
     if not _LIB_TRIED:
-        _LIB_TRIED = True
         _LIB = _native_lib()
+        _LIB_TRIED = True
     return _LIB
 
 
@@ -108,7 +94,8 @@ class Limiter:
 
 
 class _PyLimiter:
-    """Pure-Python port of native/limiter.cpp (fallback + test oracle)."""
+    """Pure-Python port of native/limiter.cpp: the limiter of a host
+    without g++, and the test oracle."""
 
     def __init__(self, channels, fs, threshold_db):
         self.channels = channels

@@ -142,6 +142,11 @@ def test_every_port_module_imports_and_renders_with_jax_blocked():
     assert "openal_soft_tpu_torch.effects.reverb" in mods
     assert "openal_soft_tpu_torch.al.api" in mods
     assert "openal_soft_tpu_torch.alc.lifecycle" in mods
+    for name in ("utils.uhjencoder", "utils.uhjdecoder", "utils.makemhr",
+                 "utils.sofa_info", "utils.openal_info", "native.build",
+                 "native.scene", "native.gen_shim", "examples.alreverb",
+                 "examples.aldirect"):
+        assert f"openal_soft_tpu_torch.{name}" in mods
     res = subprocess.run([sys.executable, "-c", _BLOCKED, *mods],
                          capture_output=True, text=True, cwd=ROOT,
                          timeout=300)
