@@ -180,6 +180,15 @@ result:
  33. examples   the 14 examples' main() on the card, <= 2 s of audio, a
                 seeded WAV and LAF file as inputs; every WAV written is
                 nonzero; alreverb and almultireverb launch the reverb
+ 34. sharding   the loaded scene at full width plus a UHJ2 bed across the
+                shards' boundary (capacity 4100) through
+                parallel/sharding.py, 8 carried 1024-frame blocks: world 1
+                over NCCL in a spawned process, bit-equal to the unsharded
+                graph (out, filter_z, hrtf_history, hrtf_tail, pos_int);
+                world 2 over gloo on CUDA tensors (two processes on the
+                one card) within 1e-5 x max(1, peak) of it, resample_gen,
+                reverb and biquad launched on each rank; wall ms per block
+                of each; then dryrun_multichip(1) at its defaults
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
@@ -273,12 +282,14 @@ def tone_pool(n_tones: int) -> list[np.ndarray]:
 
 def bench_scene(n_voices: int, capacity: int, device: str,
                 loaded: bool = False, filtered: bool = False,
-                channels: str = "stereo", hrtf: bool = True, **dev_kw):
+                channels: str = "stereo", hrtf: bool = True,
+                uhj_at: int | None = None, **dev_kw):
     """bench.py's scenes on the port (seed 42, positions x3.0, 48 tones):
     best_case, or loaded (pitch 2**U(-1,1), one EAXReverb slot, send 0).
     ``filtered`` puts a lowpass AL_DIRECT_FILTER of gain_hf ~ U(0.1, 0.9)
     on every voice and, with the slot, a lowpass send filter of gain_hf
-    0.5 on send 0."""
+    0.5 on send 0.  With ``uhj_at``, a looping one-second UHJ2 bed starts
+    before voice ``uhj_at``, on the three rows after that voice's."""
     from openal_soft_tpu_torch.alc.device import LoopbackDevice
 
     dev = LoopbackDevice(frequency=RATE, channels=channels,
@@ -299,6 +310,17 @@ def bench_scene(n_voices: int, capacity: int, device: str,
         buf.set_data(tone, "mono", "float32", RATE)
         bufs.append(buf)
     for i in range(n_voices):
+        if i == uhj_at:
+            bed = ctx.create_buffer()
+            t = np.arange(RATE) / RATE
+            bed.set_data(np.stack([0.3 * np.sin(2 * np.pi * 330 * t),
+                                   0.25 * np.sin(2 * np.pi * 550 * t + 1.0)],
+                                  axis=1).ravel().astype(np.float32),
+                         "uhj2", "float32", RATE)
+            src = ctx.create_source()
+            src.buffer(bed)
+            src.looping = True
+            src.play()
         src = ctx.create_source()
         src.buffer(bufs[i % N_TONES])
         src.looping = True
@@ -2869,6 +2891,155 @@ def phase_examples(wrappers: dict, smi: str) -> None:
                 raise AssertionError(f"{name} skipped reverb: {launches}")
 
 
+# --- the voice-sharded block graph (phase 34) ---------------------------------
+
+SHARD_BLOCKS = 8
+SHARD_TOL = 1e-5           # x max(1, peak): float32 reassociation of 4 sums
+SHARD_KERNELS = ("resample_gen", "reverb", "biquad")
+SHARD_STATE = ("filter_z", "hrtf_history", "hrtf_tail")
+SHARD_TIMEOUT = 300.0      # each rank's collectives and the parent's wait
+
+
+def sharded_scene(device: str):
+    """The loaded scene at full width plus one UHJ2 bed: N_VOICES voices
+    at capacity N_VOICES + 4, the bed on rows 2049-2051, across the
+    boundary of two 2050-row shards."""
+    cap = N_VOICES + 4
+    return bench_scene(N_VOICES, cap, device, loaded=True,
+                       uhj_at=cap // 2 - 1)
+
+
+def shard_rank(rank: int, world: int, group, unsharded: bool) -> dict:
+    """One rank of phase 34: SHARD_BLOCKS carried 1024-frame blocks of
+    sharded_scene through the sharded step (its wall ms each, the card
+    synchronised, and the launches of K3, K6 and K7 from 0), the carried
+    per-voice state gathered back; with ``unsharded`` also the same blocks
+    through the unsharded graph on the same inputs."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+    from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
+    from openal_soft_tpu_torch.ops.kernels import reverb as rev_k
+    from openal_soft_tpu_torch.parallel import sharding as sh
+
+    wrappers = {"resample_gen": rs_gen.resample_gen,
+                "reverb": rev_k.reverb_pipeline, "biquad": biq.biquad_dual}
+    dev = sharded_scene("cuda")
+    state, ev, cfg, pool = sh.device_step_inputs(dev, BLOCK)
+    step = sh.make_sharded_device_step(dev, group, BLOCK)
+    any_fade = step.any_fade
+
+    def blocks(render) -> tuple[np.ndarray, list]:
+        outs, ms = [], []
+        for b in range(SHARD_BLOCKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(render(b))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return torch.cat(outs, dim=1).cpu().numpy(), ms
+
+    st, e, c = sh.shard_inputs(state, ev, cfg, rank, world)
+    carried = [st, e]
+
+    def sharded(b):
+        out, carried[0], carried[1] = step(carried[0], carried[1], c, pool)
+        return out
+
+    for w in wrappers.values():
+        w.launches = 0
+    out, ms = blocks(sharded)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st = sh.gather_voices(carried[0], group)
+    e = sh.gather_voices(carried[1], group)
+    res = {"out": out, "ms": ms, "launches": launches,
+           "shard_rows": int(c["active"].shape[0]),
+           "uhj_rows": [r for v in dev._uhj_groups["u2"] for r in v.rows],
+           "state": {k: st[k].cpu().numpy() for k in SHARD_STATE},
+           "pos_int": e["pos_int"].cpu().numpy()}
+    if unsharded:
+        st1, e1 = sh._clone(state), sh._clone(ev)
+        ref, ref_ms = blocks(lambda b: dev._render_one(
+            st1, e1, cfg, pool, BLOCK, step.kind, any_fade and b == 0,
+            step.gates))
+        res.update(ref=ref, ref_ms=ref_ms,
+                   ref_state={k: st1[k].cpu().numpy() for k in SHARD_STATE},
+                   ref_pos_int=e1["pos_int"].cpu().numpy())
+    return res
+
+
+def phase_sharding(smi: str) -> None:
+    """Phase 34: the voice-sharded graph (parallel/sharding.py) on the
+    card.  (a) world 1 over NCCL in a spawned process: bit-equal to the
+    unsharded graph over SHARD_BLOCKS carried blocks.  (b) world 2 over
+    gloo on CUDA tensors, two processes on the one card: within
+    SHARD_TOL x max(1, peak) of (a)'s unsharded render, K3, K6 and K7
+    launched on each rank.  (c) wall ms per block: median of blocks 1-7
+    (block 0 fades in).  (d) ``dryrun_multichip(1)``, the module's dry
+    run at its defaults (NCCL, the card)."""
+    from openal_soft_tpu_torch.parallel import sharding as sh
+
+    t0 = time.perf_counter()
+    a = sh.run_ranks(1, shard_rank, (True,), backend="nccl", device="cuda",
+                     timeout=SHARD_TIMEOUT)[0]
+    a_s = time.perf_counter() - t0
+    same = {"out": bool(np.array_equal(a["out"], a["ref"])),
+            "pos_int": bool(np.array_equal(a["pos_int"], a["ref_pos_int"]))}
+    same.update({k: bool(np.array_equal(a["state"][k], a["ref_state"][k]))
+                 for k in SHARD_STATE})
+    ref, peak = a["ref"], float(np.abs(a["ref"]).max())
+    emit({"phase": "sharding", "case": "world 1, nccl", "voices": N_VOICES,
+          "shard_rows": a["shard_rows"], "uhj_rows": a["uhj_rows"],
+          "blocks": SHARD_BLOCKS, "frames": BLOCK, "bit_equal": same,
+          "peak": peak, "launches": a["launches"],
+          "sharded_ms_per_block": float(np.median(a["ms"][1:])),
+          "unsharded_ms_per_block": float(np.median(a["ref_ms"][1:])),
+          "sharded_ms": a["ms"], "unsharded_ms": a["ref_ms"],
+          "wall_s": a_s, "nvidia_smi": smi})
+    if not all(same.values()):
+        raise AssertionError(f"world 1 is not bit-equal to the unsharded "
+                             f"graph: {same}")
+    if not (np.isfinite(ref).all() and peak > 0.0
+            and ref.shape == (2, SHARD_BLOCKS * BLOCK)):
+        raise AssertionError(f"phase 34's render is not finite, nonzero "
+                             f"[2, {SHARD_BLOCKS * BLOCK}]: {ref.shape}")
+    t0 = time.perf_counter()
+    b = sh.run_ranks(2, shard_rank, (False,), backend="gloo", device="cuda",
+                     timeout=SHARD_TIMEOUT)
+    b_s = time.perf_counter() - t0
+    err = float(np.abs(b[0]["out"] - ref).max())
+    state_err = {k: float(np.abs(b[0]["state"][k]
+                                 - a["ref_state"][k]).max())
+                 for k in SHARD_STATE}
+    tol = SHARD_TOL * max(1.0, peak)
+    emit({"phase": "sharding", "case": "world 2, gloo on one card",
+          "shard_rows": [r["shard_rows"] for r in b],
+          "uhj_rows": b[0]["uhj_rows"], "max_abs_err": err, "peak": peak,
+          "tol": tol, "state_max_abs_err": state_err,
+          "pos_int_equal": bool(np.array_equal(b[0]["pos_int"],
+                                               a["ref_pos_int"])),
+          "ranks_equal": bool(np.array_equal(b[0]["out"], b[1]["out"])),
+          "launches": [r["launches"] for r in b],
+          "ms_per_block": [float(np.median(r["ms"][1:])) for r in b],
+          "ms": [r["ms"] for r in b], "wall_s": b_s, "nvidia_smi": smi})
+    if not (np.isfinite(b[0]["out"]).all() and err <= tol):
+        raise AssertionError(f"world 2 deviates from the unsharded graph "
+                             f"by {err} (tol {tol})")
+    if not np.array_equal(b[0]["out"], b[1]["out"]):
+        raise AssertionError("world 2's ranks render different outputs")
+    if not np.array_equal(b[0]["pos_int"], a["ref_pos_int"]):
+        raise AssertionError("world 2's voice positions differ")
+    for rank, r in enumerate(b):
+        if not all(r["launches"][k] > 0 for k in SHARD_KERNELS):
+            raise AssertionError(f"rank {rank} skipped a kernel: "
+                                 f"{r['launches']}")
+    # (d) the module's dry run at its defaults: one rank over NCCL.
+    t0 = time.perf_counter()
+    dry = sh.dryrun_multichip(1)
+    emit({"phase": "sharding", "case": "dryrun_multichip(1)", **dry,
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the HBM rate against the
     operations over the fp32 peak, whichever takes longer."""
@@ -3258,6 +3429,9 @@ def main() -> int:
     phase_openal_info(smi)
     phase_c_abi(wrappers, smi)
     phase_examples(wrappers, smi)
+
+    # 34. the voice-sharded graph: world 1 over NCCL, world 2 over gloo
+    phase_sharding(smi)
 
     reference = [m for m in sys.modules if m in ("jax", "openal_soft_tpu")
                  or m.startswith(("jax.", "openal_soft_tpu."))]

@@ -999,13 +999,19 @@ class RenderDevice:
                              else 256)
         return [("dt_hist", (h,)), ("s_hist", (h,))]
 
-    def _uhj_decode(self, state: dict, cfg: dict, x, T: int):
+    def _uhj_decode(self, state: dict, cfg: dict, x, T: int, reduce=None):
         """UHJ / Super Stereo source decode (core/voice.cpp:989-995): x
         [L, T + pad] -> [L, T].  Each kind's L/R(/T/Q) rows are gathered,
         decoded batched at the kind's tier, the UHJ2 rows LF-shelved
         (Voice::prepare, core/voice.cpp:1288-1317), and written back over
         their rows as W/X/Y(/Z).  The JAX package gathers and scatters
-        with one-hot products, which select the same values exactly."""
+        with one-hot products, which select the same values exactly.
+
+        With ``reduce`` (x is one shard of the rows), a voice's rows may
+        lie on two shards: each shard places the rows it owns
+        (``uhj_own_*`` of the gathered rows, at its ``uhj_local_*`` rows)
+        into zeros, ``reduce`` sums them over the group, every shard
+        decodes the same rows, and writes back only its own."""
         if not any(self._uhj_groups.values()):
             return x[:, :T] if x.shape[1] != T else x
         x_out = x[:, :T].clone()
@@ -1014,7 +1020,15 @@ class RenderDevice:
             if not n:
                 continue
             rows = cfg[f"uhj_rows_{fmt_kind}"]
-            chans = x.index_select(0, rows).reshape(n, C, x.shape[1])
+            if reduce is None:
+                chans = x.index_select(0, rows)
+            else:
+                own = cfg[f"uhj_own_{fmt_kind}"]
+                rows = cfg[f"uhj_local_{fmt_kind}"]
+                chans = x.new_zeros((n * C, x.shape[1])).index_copy_(
+                    0, own, x.index_select(0, rows))
+                reduce(chans)
+            chans = chans.reshape(n, C, x.shape[1])
             tier = self._uhj_tier(fmt_kind)
             fields = [f for f, _ in self._uhj_state_spec(fmt_kind)]
             st = {f: state[f"uhj_{fmt_kind}_{f}"] for f in fields}
@@ -1047,6 +1061,8 @@ class RenderDevice:
                 # (sWLFScale/sXYLFScale); Super Stereo does not.
                 dec, state["uhj_split"] = self._uhj_splitter.scale(
                     dec, state["uhj_split"], 1.0, cfg["uhj_lf"])
+            if reduce is not None:
+                dec = dec.index_select(0, own)
             x_out.index_copy_(0, rows, dec)
         return x_out
 
@@ -1134,22 +1150,33 @@ class RenderDevice:
 
     def _render_one(self, state: dict, ev: dict, cfg: dict, pool, T: int,
                     kind: str, any_fade: bool, gates: tuple,
-                    x_pre=None) -> torch.Tensor:
+                    x_pre=None, reduce=None) -> torch.Tensor:
         """One block: returns out [n_real, T]; state and ev advance in
         place.  ``x_pre`` is this block's slice of a super-block resample;
-        without it the block resamples itself."""
+        without it the block resamples itself.
+
+        ``reduce`` (parallel/sharding.py: state, ev and cfg hold one shard
+        of the voice rows) sums a tensor over the shards in place; it
+        takes the graph's four cross-voice sums: the UHJ rows, the dry
+        bus, the wet buses and the voices' HRTF accumulation.  What follows
+        each sum (the effects, the decode, the fold) runs on every shard
+        alike, so its state stays whole on each."""
         fade_len = min(GAIN_FADE_SAMPLES, T)
         x = (self._resample(pool, cfg, ev, T + self._uhj_pad(), kind)
              if x_pre is None else x_pre)
         x = torch.where(cfg["active"][:, None], x, 0.0)
-        x = self._uhj_decode(state, cfg, x, T)
+        x = self._uhj_decode(state, cfg, x, T, reduce)
         x_mix, x_sends = self._filters(state, ev, cfg, x, gates,
                                        bool(self.slots))
         dry = self._dry_bus(state, ev, cfg, x_mix, fade_len,
                             "gate:nodry" in gates)
+        if reduce is not None and dry is not None:
+            reduce(dry)
         real = None
         if self.slots:
             wet = self._wet_buses(ev, cfg, x, x_sends, fade_len)
+            if reduce is not None:
+                reduce(wet)
             contrib, real = self._run_slots(state, cfg, wet, T, T)
             dry = dry + contrib
         if self.layout.mode == panning.RenderMode.HRTF:
@@ -1160,6 +1187,8 @@ class RenderDevice:
                 cfg["hrtf_old_coeffs"], cfg["hrtf_old_delay"],
                 cfg["hrtf_old_gain"], ev["fade"], cfg["active"], T, fade_len,
                 any_fade)
+            if reduce is not None:
+                reduce(y_ext)
             if dry is not None:
                 y_ext = y_ext + self._direct_accum(state, dry, T)
             out, new_tail = hrtf_mix.fold_accum(y_ext, state["hrtf_tail"], T)
@@ -1309,34 +1338,7 @@ class RenderDevice:
                     n_blocks = size
                     break
 
-        if self._cfg_dev is None:
-            # The config (and the evolving fields) re-upload from the host
-            # table: every context's row mirror must be current.
-            for ctx in self.contexts:
-                if not ctx._packed_this_update:
-                    ctx._pack_block_fields(BUFFER_LINE_SIZE)
-                    ctx._packed_this_update = True
-            self._refresh_uhj_groups()
-            cfg = self._cfg_from_table()
-            self._uhj_cfg(cfg)
-            mask = self._pending_resets_mask()
-            self._cfg_has_resets = bool(mask.any())   # host-known
-            cfg["reset_rows"] = _to_dev(mask, self.torch_device)
-            for i, slot in enumerate(self.slots):
-                params = slot.compute_update()
-                keys = slot.state.device_params or tuple(params)
-                cfg[f"slot{i}"] = {k: _to_dev(params[k], self.torch_device)
-                                   for k in keys if k in params}
-            self._cfg_dev = cfg
-            # Evolving fields changed with the config; in steady state the
-            # device's own evolved copy equals the host mirror.
-            self._ev_dev = None
-        if self._ev_dev is None:
-            ev = self.table.evolving_dict(self.torch_device)
-            any_fade = bool(self.table.fade.any())
-        else:
-            ev, any_fade = self._ev_dev, self._ev_fade
-
+        ev, any_fade = self._upload()
         gates = self._graph_gates()
         resets = (self._cfg_dev["reset_rows"] if self._cfg_has_resets
                   else None)
@@ -1360,6 +1362,38 @@ class RenderDevice:
         if served < frames:
             self._carry = flat[served:].copy()
         return served
+
+    def _upload(self) -> tuple[dict, bool]:
+        """Bring ``_cfg_dev`` up to the host table, re-uploading it when a
+        host change dropped it.  Returns (the evolving fields on the
+        device, the host's knowledge that some row fades in the next
+        block)."""
+        if self._cfg_dev is None:
+            # The config (and the evolving fields) re-upload from the host
+            # table: every context's row mirror must be current.
+            for ctx in self.contexts:
+                if not ctx._packed_this_update:
+                    ctx._pack_block_fields(BUFFER_LINE_SIZE)
+                    ctx._packed_this_update = True
+            self._refresh_uhj_groups()
+            cfg = self._cfg_from_table()
+            self._uhj_cfg(cfg)
+            mask = self._pending_resets_mask()
+            self._cfg_has_resets = bool(mask.any())   # host-known
+            cfg["reset_rows"] = _to_dev(mask, self.torch_device)
+            for i, slot in enumerate(self.slots):
+                params = slot.compute_update()
+                keys = slot.state.device_params or tuple(params)
+                cfg[f"slot{i}"] = {k: _to_dev(params[k], self.torch_device)
+                                   for k in keys if k in params}
+            self._cfg_dev = cfg
+            # Evolving fields changed with the config; in steady state the
+            # device's own evolved copy equals the host mirror.
+            self._ev_dev = None
+        if self._ev_dev is None:
+            return (self.table.evolving_dict(self.torch_device),
+                    bool(self.table.fade.any()))
+        return self._ev_dev, self._ev_fade
 
     def _cfg_from_table(self) -> dict:
         """Upload the host ParamTable as the device config dict, with the

@@ -8,7 +8,13 @@ carrier and mix differ in three places (ROADMAP C11): the sawtooth steps
 2/(range-1) per sample, so that it spans [-1, 1]; the square wave's range
 is rounded up to even and its threshold is index/(range-1) < 0.5; and the
 output gains ramp over the first 64 samples of a block (MixSamples with
-Counter = min(samplesToDo, 64)), not the whole block."""
+Counter = min(samplesToDo, 64)), not the whole block.
+
+A new range rescales the carrier's index as ModulatorState::update does,
+to index * range / old range in integers (the range before the square
+wave's rounding to even over the old range after it), so the carrier
+keeps its phase across a frequency change; the JAX package reduces the
+index modulo the new range instead (ROADMAP C17)."""
 
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ class ModulatorEffect(EffectState):
         B = self.device.wet_channels
         dev = self.device.torch_device
         return {"index": torch.zeros((), dtype=torch.int64, device=dev),
+                "range": torch.ones((), dtype=torch.int64, device=dev),
                 "z": torch.zeros((B, 2), dtype=torch.float32, device=dev),
                 "gain_cur": torch.zeros((B, self.device.n_dry),
                                         dtype=torch.float32, device=dev)}
@@ -42,6 +49,7 @@ class ModulatorEffect(EffectState):
         spc = (freq / f32(props["frequency"]) + f32(0.5)
                if props["frequency"] > 0 else 1.0)
         rng = int(np.clip(spc, 1.0, freq))
+        rescale = np.int32(rng)
         if rng == 1:
             wave, scale = _WAVE_ONE, f32(0.0)
         elif props["waveform"] == 0:    # sinusoid
@@ -56,13 +64,19 @@ class ModulatorEffect(EffectState):
         rcpq = f32(2.0 * np.sinh(np.log(2.0) / 2.0 * 0.75 * w0 / np.sin(w0)))
         coeffs = spec.biquad_set_params("highpass", fcut, f32(1.0), rcpq)
         _, gains = ambi_mix_params(self.device, slot.gain)
-        return {"range": np.int32(rng), "scale": scale, "wave": np.int32(wave),
+        return {"range": np.int32(rng), "rescale": rescale,
+                "scale": scale, "wave": np.int32(wave),
                 "filter": coeffs, "gain_tgt": gains}
 
     def process(self, state, params, wet, T: int):
+        # A JAX package's snapshot holds no range: its index lies on the
+        # current one.
+        old = state.setdefault("range", params["range"].to(torch.int64,
+                                                            copy=True))
+        index = torch.where(old == params["range"], state["index"],
+                            state["index"] * params["rescale"] // old)
         i = torch.arange(T, dtype=torch.int64, device=wet.device)
-        fi = torch.remainder(state["index"] + i, params["range"]).to(
-            torch.float32)
+        fi = torch.remainder(index + i, params["range"]).to(torch.float32)
         wave, scale = params["wave"], params["scale"]
         mod = torch.where(
             wave == _WAVE_SIN, torch.sin(fi * scale),
@@ -73,8 +87,8 @@ class ModulatorEffect(EffectState):
         y, z2 = biquad_fixed(wet, state["z"], params["filter"])
         out, new_cur = effect_mix(y * mod[None, :], state["gain_cur"],
                                   params["gain_tgt"], T, MIX_RAMP)
-        state["index"].copy_(torch.remainder(state["index"] + T,
-                                             params["range"]))
+        state["index"].copy_(torch.remainder(index + T, params["range"]))
+        state["range"].copy_(params["range"])
         state["z"].copy_(z2)
         state["gain_cur"].copy_(new_cur)
         return out, None, state

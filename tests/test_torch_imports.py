@@ -145,7 +145,7 @@ def test_every_port_module_imports_and_renders_with_jax_blocked():
     for name in ("utils.uhjencoder", "utils.uhjdecoder", "utils.makemhr",
                  "utils.sofa_info", "utils.openal_info", "native.build",
                  "native.scene", "native.gen_shim", "examples.alreverb",
-                 "examples.aldirect"):
+                 "examples.aldirect", "parallel", "parallel.sharding"):
         assert f"openal_soft_tpu_torch.{name}" in mods
     res = subprocess.run([sys.executable, "-c", _BLOCKED, *mods],
                          capture_output=True, text=True, cwd=ROOT,
