@@ -26,15 +26,17 @@ APIS = {"jax": jax_api, "port": port_api}
 DEVICE_KW = {jax_api: {}, port_api: {"device": "cpu"}}
 
 
-@pytest.fixture(autouse=True)
-def jax_renders_from_private_copies(monkeypatch):
+@pytest.fixture(scope="module", autouse=True)
+def jax_renders_from_private_copies():
     """The JAX device uploads its host ParamTable with ``jnp.asarray``,
     which on XLA:CPU aliases the numpy arrays without a copy, and then
     advances the table in place (``finish_chunk``) while the dispatched
     render may still read them. Under load a render after a host change
     (a play, a pause, a stop) sometimes sees the advanced table and skips
     its fade (ROADMAP C10). Here the JAX device uploads private copies;
-    what it computes is unchanged."""
+    what it computes is unchanged.  Module-scoped, so that it also covers
+    the renders of a module's module-scoped fixtures (pytest sets those
+    up before any function-scoped fixture)."""
     from openal_soft_tpu.core.device import ParamTable, RenderDevice
 
     def on_copies(method, fields, table_of):
@@ -50,11 +52,13 @@ def jax_renders_from_private_copies(monkeypatch):
                     setattr(table, k, v)
         return upload
 
-    monkeypatch.setattr(ParamTable, "evolving_dict", on_copies(
-        ParamTable.evolving_dict, ParamTable._EVOLVING, lambda t: t))
-    monkeypatch.setattr(RenderDevice, "_cfg_from_table", on_copies(
-        RenderDevice._cfg_from_table, ParamTable._CONFIG,
-        lambda dev: dev.table))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ParamTable, "evolving_dict", on_copies(
+            ParamTable.evolving_dict, ParamTable._EVOLVING, lambda t: t))
+        mp.setattr(RenderDevice, "_cfg_from_table", on_copies(
+            RenderDevice._cfg_from_table, ParamTable._CONFIG,
+            lambda dev: dev.table))
+        yield
 
 
 def _open(api):

@@ -29,6 +29,9 @@ from openal_soft_tpu_torch.alc import config as t_conf
 from openal_soft_tpu_torch.alc.device import LoopbackDevice as TorchLoopback
 from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
 from openal_soft_tpu_torch.ops.kernels import reverb as t_rev
+# The JAX device renders from private copies of its host table (ROADMAP
+# C10: its render could read the table while finish_chunk advanced it).
+from tests.test_torch_api import jax_renders_from_private_copies  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 RATE = 48000

@@ -36,6 +36,9 @@ from openal_soft_tpu_torch.alc.device import LoopbackDevice as TorchLoopback
 from openal_soft_tpu_torch.ops import uhj as t_uhj
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
 from openal_soft_tpu_torch.ops.kernels import resample_span as t_span
+# The JAX device renders from private copies of its host table (ROADMAP
+# C10: its render could read the table while finish_chunk advanced it).
+from tests.test_torch_api import jax_renders_from_private_copies  # noqa: F401
 from tests.test_torch_goldens import _conf
 
 OPS_TOL = 2e-6
