@@ -106,6 +106,8 @@ class Source:
             if v is not None and v.source_id == self.id:
                 v.is_stream = True
                 v.queue.extend(self._buffer_item(b) for b in bufs)
+                # A static voice turned stream leaves the batched advance.
+                self.context._mirror_plan = None
                 if any(b.callback is not None for b in bufs):
                     self.context._cb_scan_due = True
 

@@ -22,7 +22,7 @@ import numpy as np
 
 from ..constants import GAIN_FADE_SAMPLES, MIXER_FRAC_BITS, MIXER_FRAC_MASK
 from ..core import context as cparams
-from ..core.voice import PlayState, Voice
+from ..core.voice import PlayState, Voice, VoiceStore
 
 from ..ops import filters as f_ops
 
@@ -52,6 +52,32 @@ class VoiceChange:
     source_id: int = 0
 
 
+@dataclasses.dataclass
+class _MirrorPlan:
+    """How ``finish_chunk`` splits a context's voices, built under one
+    uploaded device config and kept while that config is live: every
+    change to a voice's state, rows, step or buffer dirties the config
+    (queueing onto a stream drops the plan itself).
+
+    Candidates are the PLAYING static voices with a buffer and no
+    callback; per chunk, those whose advance can neither end the voice
+    nor complete a buffer (a loop, or a stop short of the buffer's end)
+    step together.  ``stepped`` holds the others (STOPPING, streaming,
+    callback and bufferless voices), which always take the per-voice
+    path."""
+    cfg: object                 # the device config it was built under
+    rows: np.ndarray            # every PLAYING voice's rows, voice order
+    stepped: list[int]          # indices into Context.voices
+    order: np.ndarray           # the candidates' indices into voices
+    slot: np.ndarray            # their VoiceStore slots
+    step: np.ndarray            # int64 increments
+    loop: np.ndarray            # looping with loop_end > loop_start
+    loop_start: np.ndarray
+    loop_end: np.ndarray
+    span: np.ndarray            # loop_end - loop_start (1 when not looping)
+    sample_len: np.ndarray
+
+
 class Context:
     """One rendering context on a device."""
 
@@ -62,6 +88,12 @@ class Context:
         self._listener_dirty = True
         self.params = cparams.calc_context_params(self.listener)
         self.voices: list[Voice] = []
+        self._vstore = VoiceStore()
+        self._mirror_plan: _MirrorPlan | None = None
+        # Voice advances of finish_chunk: by the batched step, and by the
+        # per-voice path (logged when the device closes).
+        self.mirror_voices_batched = 0
+        self.mirror_voices_stepped = 0
         self.voice_changes: list[VoiceChange] = []
         self.events: list[tuple] = []     # (kind, source_id, ...)
         self.sources: dict[int, object] = {}
@@ -201,7 +233,7 @@ class Context:
     # --- API-side entry points ---
 
     def new_voice(self) -> Voice:
-        v = Voice()
+        v = Voice(self._vstore)
         self.voices.append(v)
         return v
 
@@ -347,6 +379,7 @@ class Context:
         mp = cparams.calc_voice_params(v, self.params, dev)
         v.step = mp.step
         t = dev.table
+        t.ramp_pending[v.rows] = True
         for c, r in enumerate(v.rows):
             t.increment[r] = mp.step
             t.bank_row[r] = mp.bank_row
@@ -496,22 +529,25 @@ class Context:
         """
         t = self.device.table
         fade = min(GAIN_FADE_SAMPLES, block_len)
-        rows, playing, fades, pos, frac = [], [], [], [], []
-        s_off, s_len, l_start, l_end, h_loop, h_wrap = [], [], [], [], [], []
+        rows, playing, fades, slots = [], [], [], []
+        s_off, s_len, l_start, l_end = [], [], [], []
+        # Per row: the loop end under which it loops (0: never, positions
+        # are not negative), and whether it reports its voice's wrap.
+        # Positions come from the VoiceStore in one gather after the walk.
+        loop_lim, wraps = [], []
         for v in self.voices:
             if not v.rows or v.state not in (PlayState.PLAYING, PlayState.STOPPING):
                 continue
             is_playing = v.state == PlayState.PLAYING
             buf = v.current_buffer()
             fade_v = fade if v.is_fading else 0
-            looping = (buf is not None and v.looping and v.is_static
-                       and v.position < buf.loop_end)
+            lim = (buf.loop_end if buf is not None and v.looping
+                   and v.is_static else 0)
             for c, r in enumerate(v.rows):
                 rows.append(r)
                 playing.append(is_playing)
                 fades.append(fade_v)
-                pos.append(v.position)
-                frac.append(v.position_frac)
+                slots.append(v.store_slot)
                 if buf is not None:
                     if c >= buf.channels and v.is_ambisonic:
                         # UHJ2/SuperStereo T line etc: zero-filled channel
@@ -520,8 +556,8 @@ class Context:
                         s_len.append(0)
                         l_start.append(0)
                         l_end.append(1)
-                        h_loop.append(False)
-                        h_wrap.append(False)
+                        loop_lim.append(0)
+                        wraps.append(False)
                         continue
                     chan = min(c, buf.channels - 1)
                     stride = buf.plane_stride or buf.sample_len
@@ -529,25 +565,28 @@ class Context:
                     s_len.append(buf.sample_len)
                     l_start.append(buf.loop_start)
                     l_end.append(max(buf.loop_end, buf.loop_start + 1))
-                    h_loop.append(looping)
-                    h_wrap.append(v.has_wrapped)
+                    loop_lim.append(lim)
+                    wraps.append(True)
                 else:
                     s_off.append(int(t.src_off[r]))
                     s_len.append(0)  # silence
                     l_start.append(int(t.loop_start[r]))
                     l_end.append(int(t.loop_end[r]))
-                    h_loop.append(False)
-                    h_wrap.append(False)
+                    loop_lim.append(0)
+                    wraps.append(False)
         if not rows:
             return
         ri = np.array(rows, np.int64)
         playing = np.array(playing)
+        st = self._vstore
+        sl = np.array(slots, np.int64)
+        pos = st.pos[sl]
         s_off = np.array(s_off, np.int32)
         s_len = np.array(s_len, np.int32)
         l_start = np.array(l_start, np.int32)
         l_end = np.array(l_end, np.int32)
-        h_loop = np.array(h_loop)
-        h_wrap = np.array(h_wrap)
+        h_loop = pos < np.array(loop_lim, np.int64)
+        h_wrap = np.array(wraps) & st.wrapped[sl]
         changed = (bool(np.any(~t.active[ri]))
                    or bool(np.any(t.playing[ri] != playing))
                    or bool(np.any(t.src_off[ri] != s_off))
@@ -560,8 +599,8 @@ class Context:
         t.active[ri] = True
         t.playing[ri] = playing
         t.fade[ri] = np.array(fades, np.int32)
-        t.pos_int[ri] = np.array(pos, np.int32)
-        t.pos_frac[ri] = np.array(frac, np.int32)
+        t.pos_int[ri] = pos
+        t.pos_frac[ri] = st.frac[sl]
         t.src_off[ri] = s_off
         t.src_len[ri] = s_len
         t.loop_start[ri] = l_start
@@ -572,67 +611,129 @@ class Context:
     def finish_chunk(self, T: int, n_blocks: int = 1) -> None:
         """Deterministic post-dispatch state evolution (host mirror).
 
-        Row-wise table updates run as single batched numpy assignments over
-        the whole playing population (the per-voice loop dominated dispatch
-        time at 512+ voices)."""
+        Costs work in proportion to the voices with something to do: the
+        static voices whose advance can neither end them nor complete a
+        buffer advance in one numpy step over the VoiceStore, with
+        Voice.advance's integer math; every other voice takes the
+        per-voice path in voice order, so events and config changes fire
+        as they always did.  The table copies and interp schedules run
+        only on rows with a ramp or a schedule pending."""
         t = self.device.table
         frames = T * n_blocks
-        playing_rows: list[int] = []
-        for v in self.voices:
-            if not v.rows:
+        plan = self._mirror_plan
+        if plan is None or plan.cfg is None \
+                or plan.cfg is not self.device._cfg_dev:
+            plan = self._mirror_plan = self._build_mirror_plan()
+        stepped = plan.stepped
+        if plan.slot.size:
+            st = self._vstore
+            total = st.frac[plan.slot] + plan.step * frames
+            pos = st.pos[plan.slot] + (total >> MIXER_FRAC_BITS)
+            ok = plan.loop | (pos < plan.sample_len)
+            wrap = plan.loop & (pos >= plan.loop_end)
+            pos = np.where(wrap, plan.loop_start
+                           + (pos - plan.loop_start) % plan.span, pos)
+            slot = plan.slot
+            if not ok.all():
+                # These end inside the chunk: the per-voice path emits.
+                stepped = sorted(stepped + plan.order[~ok].tolist())
+                slot, pos, total, wrap = slot[ok], pos[ok], total[ok], wrap[ok]
+            st.pos[slot] = pos
+            st.frac[slot] = total & MIXER_FRAC_MASK
+            st.wrapped[slot] |= wrap
+            self.mirror_voices_batched += int(slot.size)
+        for i in stepped:
+            self._advance_voice(self.voices[i], frames)
+
+        rows = plan.rows
+        if not rows.size:
+            return
+        # Gain ramps complete within the first block: Current <- Target.
+        ramp = rows[t.ramp_pending[rows]]
+        if ramp.size:
+            pl = t.playing[ramp]
+            t.dry_cur[ramp] = np.where(pl[:, None], t.dry_tgt[ramp], 0.0)
+            t.wet_cur[ramp] = np.where(pl[:, None, None], t.wet_tgt[ramp],
+                                       0.0)
+            t.hrtf_old_gain[ramp] = t.hrtf_gain[ramp]
+            t.hrtf_old_coeffs[ramp] = t.hrtf_coeffs[ramp]
+            t.hrtf_old_delay[ramp] = t.hrtf_delay[ramp]
+            t.ramp_pending[ramp] = False
+        # The interp schedule completes within 256 samples; cap the loop.
+        # A row at counter 0 is its fixed point, and -1 (a fresh filter)
+        # is left alone.
+        n = min(frames, f_ops.INTERP_SAMPLES)
+        live = rows[t.filter_counter[rows] > 0]
+        if live.size:
+            t.filter_coeffs[live], t.filter_counter[live] = \
+                f_ops.host_advance_interp(t.filter_coeffs[live],
+                                          t.filter_target[live],
+                                          t.filter_counter[live], n)
+        for snd in range(self.device.num_aux_sends):
+            live = rows[t.send_filter_counter[rows, snd] > 0]
+            if live.size:
+                t.send_filter_coeffs[live, snd], \
+                    t.send_filter_counter[live, snd] = \
+                    f_ops.host_advance_interp(
+                        t.send_filter_coeffs[live, snd],
+                        t.send_filter_target[live, snd],
+                        t.send_filter_counter[live, snd], n)
+
+    def _build_mirror_plan(self) -> _MirrorPlan:
+        rows: list[int] = []
+        stepped: list[int] = []
+        cand: list[tuple] = []
+        for i, v in enumerate(self.voices):
+            if not v.rows or v.state not in (PlayState.PLAYING,
+                                             PlayState.STOPPING):
                 continue
             if v.state == PlayState.STOPPING:
-                # Mixed one silent-target block; now fully stopped.
-                v.state = PlayState.STOPPED
-                self.device.free_rows(v.rows)
-                v.rows = []
+                stepped.append(i)
                 continue
-            if v.state != PlayState.PLAYING:
+            rows.extend(v.rows)
+            buf = v.current_buffer()
+            if buf is None or buf.callback is not None or not v.is_static:
+                stepped.append(i)
                 continue
-            playing_rows.extend(v.rows)
-
+            # Every chunk marks a playing voice fading; the plan lives no
+            # longer than this holds (a play or a device reset dirties it).
             v.is_fading = True
-            # Position advance (voice.cpp:1086-1089)
-            total = v.position_frac + v.step * frames
-            samples_done = total >> MIXER_FRAC_BITS
-            v.position_frac = total & MIXER_FRAC_MASK
-            buffers_done, ended = v.advance(samples_done)
-            if buffers_done:
-                self._emit("buffer_completed", v.source_id, buffers_done)
-                self.device.mark_config_dirty()
-            if ended:
-                v.state = PlayState.STOPPING
-                self._emit("source_state", v.source_id, "stop")
-                src = self.sources.get(v.source_id)
-                if src is not None:
-                    src.voice_ended()
-                v.source_id = 0
-                self.device.mark_config_dirty()
+            loop = v.looping and buf.loop_end > buf.loop_start
+            cand.append((i, v.store_slot, v.step, loop, buf.loop_start,
+                         buf.loop_end,
+                         buf.loop_end - buf.loop_start if loop else 1,
+                         buf.sample_len))
+        order, slot, step, loop, ls, le, span, slen = np.array(
+            cand, np.int64).reshape(-1, 8).T
+        return _MirrorPlan(self.device._cfg_dev, np.array(rows, np.int64),
+                           stepped, order, slot, step, loop.astype(bool),
+                           ls, le, span, slen)
 
-        if not playing_rows:
+    def _advance_voice(self, v: Voice, frames: int) -> None:
+        """The per-voice path: a STOPPING voice stops and frees its rows; a
+        PLAYING one advances through Voice.advance, emitting its buffer
+        completions and its end."""
+        if v.state == PlayState.STOPPING:
+            # Mixed one silent-target block; now fully stopped.
+            v.state = PlayState.STOPPED
+            self.device.free_rows(v.rows)
+            v.rows = []
             return
-        rows = np.array(playing_rows, np.int64)
-        # Gain ramps complete within the first block: Current <- Target.
-        pl = t.playing[rows]
-        t.dry_cur[rows] = np.where(pl[:, None], t.dry_tgt[rows], 0.0)
-        t.wet_cur[rows] = np.where(pl[:, None, None], t.wet_tgt[rows], 0.0)
-        t.hrtf_old_gain[rows] = t.hrtf_gain[rows]
-        t.hrtf_old_coeffs[rows] = t.hrtf_coeffs[rows]
-        t.hrtf_old_delay[rows] = t.hrtf_delay[rows]
-        # The interp schedule completes within 256 samples; cap the loop.
-        cf, cnt = f_ops.host_advance_interp(
-            t.filter_coeffs[rows], t.filter_target[rows],
-            np.maximum(t.filter_counter[rows], 0),
-            min(frames, f_ops.INTERP_SAMPLES))
-        keep = t.filter_counter[rows] >= 0
-        t.filter_coeffs[rows[keep]] = cf[keep]
-        t.filter_counter[rows[keep]] = cnt[keep]
-        for snd in range(self.device.num_aux_sends):
-            scf, scnt = f_ops.host_advance_interp(
-                t.send_filter_coeffs[rows, snd],
-                t.send_filter_target[rows, snd],
-                np.maximum(t.send_filter_counter[rows, snd], 0),
-                min(frames, f_ops.INTERP_SAMPLES))
-            keep = t.send_filter_counter[rows, snd] >= 0
-            t.send_filter_coeffs[rows[keep], snd] = scf[keep]
-            t.send_filter_counter[rows[keep], snd] = scnt[keep]
+        self.mirror_voices_stepped += 1
+        v.is_fading = True
+        # Position advance (voice.cpp:1086-1089)
+        total = v.position_frac + v.step * frames
+        samples_done = total >> MIXER_FRAC_BITS
+        v.position_frac = total & MIXER_FRAC_MASK
+        buffers_done, ended = v.advance(samples_done)
+        if buffers_done:
+            self._emit("buffer_completed", v.source_id, buffers_done)
+            self.device.mark_config_dirty()
+        if ended:
+            v.state = PlayState.STOPPING
+            self._emit("source_state", v.source_id, "stop")
+            src = self.sources.get(v.source_id)
+            if src is not None:
+                src.voice_ended()
+            v.source_id = 0
+            self.device.mark_config_dirty()

@@ -344,6 +344,7 @@ class PlaybackDevice:
             sysevents.emit_event(
                 sysevents.ALC_EVENT_TYPE_DEVICE_REMOVED_SOFT,
                 sysevents.ALC_PLAYBACK_DEVICE_SOFT, self, self.name)
+        self.render.close()
         self.state = DeviceState.UNPREPARED
 
 

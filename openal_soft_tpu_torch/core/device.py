@@ -238,6 +238,11 @@ class ParamTable:
         # NFC: w0 per row, -1.0 = create-state identity filter.
         self.nfc_w0 = np.full(L, -1.0, f32)
         self.nfc_active = np.zeros(L, bool)
+        # Host only: the rows whose Current <- Target copies (dry_cur and
+        # wet_cur from the targets, hrtf_old_* from hrtf_*) may still move
+        # something: set wherever the targets are written (a voice update,
+        # clear_row, restore), cleared by the mirror's copy.
+        self.ramp_pending = np.ones(L, bool)
 
     # Fields that evolve deterministically on the device within a dispatch;
     # the host mirrors their end state with identical integer/f32 math, so
@@ -283,6 +288,7 @@ class ParamTable:
         self.hrtf_old_delay[r] = 0
         self.nfc_w0[r] = -1.0
         self.nfc_active[r] = False
+        self.ramp_pending[r] = True
 
 
 class RenderDevice:
@@ -1440,6 +1446,7 @@ class RenderDevice:
         with self.lock:
             for k, v in snap["table"].items():
                 getattr(self.table, k)[...] = v
+            self.table.ramp_pending[:] = True
             dev = self.torch_device
             self._state = _state_to_dev(snap["state"], dev)
             self._ev_dev = {k: _to_dev(v, dev) for k, v in snap["ev"].items()}
@@ -1474,6 +1481,13 @@ class RenderDevice:
                     if v.state == PlayState.PLAYING:
                         v.state = PlayState.STOPPING
                         self.mark_config_dirty()
+
+    def close(self) -> None:
+        """alcCloseDevice: nothing to release (torch frees the buffers);
+        logs how each context's host mirror advanced its voices."""
+        for ctx in self.contexts:
+            log.trace("host mirror: %d voice advances batched, %d stepped",
+                      ctx.mirror_voices_batched, ctx.mirror_voices_stepped)
 
     def clock_ns(self) -> int:
         """ALC_DEVICE_CLOCK_SOFT: nanoseconds of samples rendered."""

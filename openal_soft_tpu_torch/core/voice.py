@@ -6,7 +6,8 @@ RT mixer thread owns.  Here the analogous state is split: scalar bookkeeping
 while all per-sample state (filter z's, HRTF history) lives in the device
 state pytree, and per-block mixing parameters live in SoA rows of the
 device param table (core/device.py).  A voice owns one table row per mixing
-channel.
+channel.  Its position lives in its context's VoiceStore, so that the host
+mirror can advance many voices in one numpy step.
 """
 
 from __future__ import annotations
@@ -132,20 +133,43 @@ class BufferItem:
                                 # (0 = sample_len; callback segments differ)
 
 
+class VoiceStore:
+    """The positions of a context's voices, one slot per voice, in flat
+    arrays: the host mirror advances every voice without an event in one
+    numpy step over them (alc/context.py ``finish_chunk``), and each
+    Voice's ``position``, ``position_frac`` and ``has_wrapped`` read and
+    write its slot.  Slots are never freed (a context keeps its voices)."""
+
+    def __init__(self) -> None:
+        self.pos = np.zeros(64, np.int64)           # frames into the item
+        self.frac = np.zeros(64, np.int64)          # MIXER_FRAC_BITS fraction
+        self.wrapped = np.zeros(64, bool)
+        self.n = 0
+
+    def add(self) -> int:
+        """A new slot at position 0, fraction 0, not wrapped."""
+        if self.n == self.pos.size:
+            self.pos = np.concatenate([self.pos, np.zeros_like(self.pos)])
+            self.frac = np.concatenate([self.frac, np.zeros_like(self.frac)])
+            self.wrapped = np.concatenate([self.wrapped,
+                                           np.zeros_like(self.wrapped)])
+        self.n += 1
+        return self.n - 1
+
+
 class Voice:
     """One mixing voice: play state + queue position + table row ownership."""
 
-    def __init__(self) -> None:
+    def __init__(self, store: VoiceStore) -> None:
+        self._store = store
+        self.store_slot = store.add()
         self.props = VoiceProps()
         self.source_id = 0
         self.state = PlayState.STOPPED
-        self.position = 0           # frames into current buffer item
-        self.position_frac = 0
         self.queue: list[BufferItem] = []
         self.queue_index = 0        # current buffer item
         self.is_stream = False      # AL_STREAMING source (queue semantics)
         self.looping = False
-        self.has_wrapped = False
         self.start_time_ns = 0
 
         self.fmt_channels = FmtChannels.MONO
@@ -166,6 +190,31 @@ class Voice:
 
         self.rows: list[int] = []   # param-table rows (one per mixing channel)
         self.props_dirty = True
+
+    @property
+    def position(self) -> int:
+        """Frames into the current buffer item."""
+        return int(self._store.pos[self.store_slot])
+
+    @position.setter
+    def position(self, value: int) -> None:
+        self._store.pos[self.store_slot] = value
+
+    @property
+    def position_frac(self) -> int:
+        return int(self._store.frac[self.store_slot])
+
+    @position_frac.setter
+    def position_frac(self, value: int) -> None:
+        self._store.frac[self.store_slot] = value
+
+    @property
+    def has_wrapped(self) -> bool:
+        return bool(self._store.wrapped[self.store_slot])
+
+    @has_wrapped.setter
+    def has_wrapped(self, value: bool) -> None:
+        self._store.wrapped[self.store_slot] = value
 
     @property
     def is_static(self) -> bool:
