@@ -17,8 +17,8 @@ result:
                 seams, short loops, backward wraps, end clamps, pre-start
                 silence and empty sources; then UNIT_CASES: ragged W (1,
                 100, 1023, 16385) with buffers at the pool's end, loops of
-                1-3 frames wrapped and not, taps 1, 4 and 48: bit-equal
-                required
+                1-3 frames wrapped and not, loops from frame 0 read from a
+                few taps before it, taps 1, 4 and 48: bit-equal required
   4. timing     resample_unit at the main path's shape [4096, 16384] and at
                 one block [4096, 1024]: the kernel alone beside the
                 previous kernel where the build directory holds its source
@@ -35,8 +35,8 @@ result:
                 2, 4, 24, 48), increments 0.25x..10x, the same branch cases
                 as phase 3; then WINDOW_CASES: ragged W (1, 100, 1023,
                 16385), taps 48 at 10x (the largest window and weight
-                tables), loops of 1-3 frames wrapped and not: bit-equal
-                required
+                tables), loops of 1-3 frames wrapped and not, loops from
+                frame 0 read from a few taps before it: bit-equal required
   8. kernel     reverb against its plain version at 44.1, 48 and 96 kHz,
                 one pipeline and the A/B crossfade, windows of 1024 and
                 16384, >= 128 chunks each including the decaying tail, with
@@ -201,6 +201,11 @@ instead builds the kernels and profiles one warm 512-block call of the
 scene at full width with torch.profiler (device time by kernel and by op;
 fx_rack's profile records 16 blocks after an unprofiled 512-block call).
 ``--seed N`` (default 0) seeds fx_rack's voices and its convolution IR.
+
+    python3 chip_smoke.py --resample
+
+runs phases 1-3, 7 (resample_gen only) and 16-17: every resampler kernel
+(K1, K3, K4, K5) against its plain version, in a few minutes.
 """
 
 from __future__ import annotations
@@ -650,15 +655,41 @@ def short_loop_case(rng, V: int, W: int, taps: int, inc_range: tuple,
     return tuple(args)
 
 
+def zero_start_case(rng, V: int, W: int, taps: int, inc_range: tuple,
+                    device):
+    """span_case's voices, every one looping from frame 0 over 1 frame to
+    its whole buffer, every other one wrapped, starting from a few taps
+    before frame 0 to past it, at increments drawn from ``inc_range``: a
+    wrapped voice's frames below 0 are the loop's last ones, an unwrapped
+    one's are silent (a voice rebased onto its loop's first frame)."""
+    import torch
+
+    args = list(span_case(rng, V, W, taps, inc_range, device))
+    lens = args[2].cpu().numpy()
+    le = rng.integers(1, np.maximum(lens, 1) + 1)
+    Ti = lambda a: torch.tensor(np.asarray(a), device=device).to(torch.int32)
+    args[3], args[4] = Ti(np.zeros(V)), Ti(le)
+    args[5] = torch.ones(V, dtype=torch.bool, device=device)
+    args[6] = torch.tensor(np.arange(V) % 2 == 0, device=device)
+    args[7] = Ti(rng.integers(-taps - 4, 8, V))
+    return tuple(args)
+
+
+# The voices of each case kind.
+CASE_KINDS = {"branches": span_case, "short_loops": short_loop_case,
+              "zero_start": zero_start_case}
+
 # Phases 7 and 16, for both staged-window kernels (K3, K4): (V, W, taps,
 # (lowest, highest increment), kind): ragged widths, the largest window
-# with the largest weight tables (taps 48 at 10x), loops of 1-3 frames.
+# with the largest weight tables (taps 48 at 10x), loops of 1-3 frames,
+# loops from frame 0.
 ONE = 1 << 16
 WINDOW_CASES = (
     [(256, W, taps, (ONE // 4, 10 * ONE), "branches")
      for W in (1, 100, 1023, 16385) for taps in (4, 48)]
     + [(256, W, 48, (10 * ONE, 10 * ONE), "branches") for W in (1024, 16384)]
-    + [(256, W, taps, (ONE // 4, 10 * ONE), "short_loops")
+    + [(256, W, taps, (ONE // 4, 10 * ONE), kind)
+       for kind in ("short_loops", "zero_start")
        for W in (128, 1024, 16385) for taps in (1, 4, 48)])
 
 
@@ -668,8 +699,8 @@ WINDOW_CASES = (
 UNIT_CASES = (
     [(W, taps, "branches") for W in (1, 100, 1023, 16385)
      for taps in (1, 4, 48)]
-    + [(W, taps, "short_loops") for W in (128, 1024, 16385)
-       for taps in (1, 4, 48)])
+    + [(W, taps, kind) for kind in ("short_loops", "zero_start")
+       for W in (128, 1024, 16385) for taps in (1, 4, 48)])
 
 # Phase 17's cases for K5 beyond its first ones: WINDOW_CASES's shapes
 # within K5's largest bucket (((max_inc * W) >> 16) + 64 <= 11264).
@@ -678,10 +709,11 @@ VOICE_CASES = (
      for W in (1, 100, 1023) for taps in (4, 48)]
     + [(256, 1024, 48, (10 * ONE, 10 * ONE), "branches")]
     + [(256, 16385, taps, (ONE // 4, 42000), "branches") for taps in (4, 48)]
-    + [(256, W, taps, (ONE // 4, 10 * ONE), "short_loops")
+    + [(256, W, taps, (ONE // 4, 10 * ONE), kind)
+       for kind in ("short_loops", "zero_start")
        for W in (128, 1024) for taps in (1, 4, 48)]
-    + [(256, 16385, taps, (ONE // 4, 42000), "short_loops")
-       for taps in (1, 4, 48)])
+    + [(256, 16385, taps, (ONE // 4, 42000), kind)
+       for kind in ("short_loops", "zero_start") for taps in (1, 4, 48)])
 
 
 def unit_weights(args, taps: int):
@@ -699,10 +731,9 @@ def unit_weights(args, taps: int):
 
 
 def unit_window_case(rng, V: int, W: int, taps: int, kind: str, device):
-    """K1's inputs from span_case's voices (kind "branches") or
-    short_loop_case's ("short_loops") at unit increment, with their
-    weights from unit_weights."""
-    make = short_loop_case if kind == "short_loops" else span_case
+    """K1's inputs from the voices of a CASE_KINDS kind at unit
+    increment, with their weights from unit_weights."""
+    make = CASE_KINDS[kind]
     args = make(rng, V, W, taps, (ONE, ONE), device)
     return (*args[:8], unit_weights(args, taps))
 
@@ -711,15 +742,14 @@ def check_resample_kernel(cuda, name: str, wrapper, ref, cases,
                           seed: int = 8) -> float:
     """Phases 7 and 16-17: ``wrapper`` bit-equal to its plain version
     ``ref`` over ``cases`` of (V, W, taps, (lowest, highest increment)[,
-    kind]): kind "branches" (span_case, the default) or "short_loops"
-    (short_loop_case)."""
+    kind]): a CASE_KINDS kind, "branches" (span_case) by default."""
     import torch
 
     rng = np.random.default_rng(seed)
     max_err = 0.0
     for V, W, taps, inc_range, *rest in cases:
         kind = rest[0] if rest else "branches"
-        make = short_loop_case if kind == "short_loops" else span_case
+        make = CASE_KINDS[kind]
         args = make(rng, V, W, taps, inc_range, cuda)
         got = wrapper(*args, W, taps)
         want = ref(*args, W, taps)
@@ -1329,6 +1359,28 @@ def check_gen_kernel(cuda) -> float:
     return max(max_err, check_resample_kernel(
         cuda, "resample_gen", rs_gen.resample_gen, rs_gen.resample_gen_ref,
         WINDOW_CASES, seed=12))
+
+
+def check_span_voice_kernels(cuda, report: dict) -> None:
+    """Phases 16-17: resample_span and resample_voice bit-equal to their
+    plain versions."""
+    from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
+    from openal_soft_tpu_torch.ops.kernels import resample_voice as rs_voice
+
+    one = 1 << 16
+    report["resample_span"]["max_abs_err"] = check_resample_kernel(
+        cuda, "resample_span", rs_span.resample_span,
+        rs_span.resample_span_ref,
+        [(256, W, taps, (one // 4, 10 * one)) for taps in (1, 2, 4, 24, 48)
+         for W in (128, 1024, 1152, 16512, 16640)] + WINDOW_CASES)
+    report["resample_voice"]["max_abs_err"] = check_resample_kernel(
+        cuda, "resample_voice", rs_voice.resample_voice,
+        rs_voice.resample_voice_ref,
+        [(256, W, taps, incs) for taps in (1, 4, 48)
+         for W, incs in ((128, (one // 4, 10 * one)),
+                         (1024, (one // 4, 10 * one)),
+                         (1152, (one // 4, 9 * one)),
+                         (16512, (one // 4, 42000)))] + VOICE_CASES)
 
 
 def reverb_case(rate: int, crossfade: bool, device: str, **props):
@@ -3178,6 +3230,13 @@ def main() -> int:
 
     # 3. the unit kernel against its plain version on the card
     report["resample_unit"]["max_abs_err"] = check_unit_kernel(cuda)
+    if "--resample" in sys.argv:
+        report["resample_gen"]["max_abs_err"] = check_gen_kernel(cuda)
+        check_span_voice_kernels(cuda, report)
+        emit({"ok": True, "resample": {k: report[k]["max_abs_err"] for k in
+              ("resample_unit", "resample_gen", "resample_span",
+               "resample_voice")}})
+        return 0
 
     # 4. timing at the main path's shape: V=4096, W=16*1024, taps=4, on
     # best_case-like voices (48 looping one-second tones), then at one
@@ -3385,20 +3444,7 @@ def main() -> int:
             raise AssertionError(f"{name} never launched biquad")
 
     # 16-17. the span and per-voice resamplers against their plain versions
-    one = 1 << 16
-    report["resample_span"]["max_abs_err"] = check_resample_kernel(
-        cuda, "resample_span", rs_span.resample_span,
-        rs_span.resample_span_ref,
-        [(256, W, taps, (one // 4, 10 * one)) for taps in (1, 2, 4, 24, 48)
-         for W in (128, 1024, 1152, 16512, 16640)] + WINDOW_CASES)
-    report["resample_voice"]["max_abs_err"] = check_resample_kernel(
-        cuda, "resample_voice", rs_voice.resample_voice,
-        rs_voice.resample_voice_ref,
-        [(256, W, taps, incs) for taps in (1, 4, 48)
-         for W, incs in ((128, (one // 4, 10 * one)),
-                         (1024, (one // 4, 10 * one)),
-                         (1152, (one // 4, 9 * one)),
-                         (16512, (one // 4, 42000)))] + VOICE_CASES)
+    check_span_voice_kernels(cuda, report)
     phase_timings(cuda, report, smi)
 
     # 19-20. uhj_big_pool at full width, then the UHJ parity scenes

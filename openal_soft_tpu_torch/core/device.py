@@ -40,7 +40,10 @@ dispatch.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -122,6 +125,30 @@ def _state_to_dev(state: dict, device: torch.device) -> dict:
             out[k] = _to_dev(a.astype(np.int64) if a.dtype.kind in "iu"
                              else a, device)
     return out
+
+
+# Whether a torch.profiler profile is recording: a range opened outside one
+# records nothing and still costs ~10 us of host time.
+_profiling = getattr(torch._C._autograd, "_profiler_enabled", lambda: True)
+
+
+def _span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profile records
+    (host time only: it adds no device operation), else nothing."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _ranged(name: str):
+    """Run the decorated method inside ``_span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with _span(name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
 
 
 class BufferPool:
@@ -517,6 +544,13 @@ class RenderDevice:
         # ambisonic wet bus (ACN, unit scale).
         self.wet_channels = (self.layout.ambi_order + 1) ** 2
         self.slots: list = []
+        # What the block path ran (logged when the device closes): blocks
+        # each slot's engine processed, by engine; filter rows K7 ran
+        # (direct and send paths, one row a voice a path a launch); blocks
+        # through the dual-band decode.
+        self.slot_blocks: collections.Counter = collections.Counter()
+        self.filter_rows = 0
+        self.decode_blocks_dual = 0
         self._bank_sl = None   # (taps, bank sliced for the general kernel)
         self._state = self._init_state()
         self._clock_samples = 0
@@ -770,6 +804,7 @@ class RenderDevice:
         fn = rs_span.resample_span if kind == "span" else rs_gen.resample_gen
         return fn(*args, bank_sl=self._bank_sl[1], max_inc=self._max_inc)
 
+    @_ranged("alsoft.filters")
     def _filters(self, state: dict, ev: dict, cfg: dict, x,
                  gates: tuple, sends: bool):
         """The voices' filter paths over the unfiltered x: the direct path
@@ -806,6 +841,7 @@ class RenderDevice:
                     ev["send_filter_counter"][:, snd],
                     cfg["send_filter_active"][:, snd]))
                 names.append(snd)
+        self.filter_rows += x.shape[0] * len(paths)
         ys = (dict(zip(names, biq.biquad_paths(x.contiguous(), paths)))
               if paths else {})
         return ys.get("direct", x), [ys.get(snd, x) for snd in range(n_sends)]
@@ -841,6 +877,7 @@ class RenderDevice:
             ev["dry_cur"][:, lo:hi] = cur2
         return torch.cat(pieces, dim=0)
 
+    @_ranged("alsoft.wet_buses")
     def _wet_buses(self, ev: dict, cfg: dict, x, xs: list, fade_len: int):
         """The slots' wet buses [n_slots, B, n] of x [V, n]: each send's
         lines ``xs[snd]`` (x through that send's filters, ``_filters``) mix
@@ -860,6 +897,7 @@ class RenderDevice:
             ev["wet_cur"][:, snd, :B] = cur2
         return wet
 
+    @_ranged("alsoft.slots")
     def _run_slots(self, state: dict, cfg: dict, wet, W: int, T: int):
         """Every slot's effect over a window of W samples, in the widest
         sub-windows that all effects' rings allow (the whole super-block
@@ -872,13 +910,16 @@ class RenderDevice:
             while Tw > mw or W % Tw:
                 Tw //= 2
         Tw = max(Tw, T)
+        for slot in self.slots:
+            self.slot_blocks[slot.effect_type] += W // T
         dry_parts, real_parts = [], []
         for b in range(W // Tw):
             dry = real = None
             for i, slot in enumerate(self.slots):
-                cb, rb, state[f"slot{i}"] = slot.state.process(
-                    state[f"slot{i}"], cfg[f"slot{i}"],
-                    wet[i, :, b * Tw:(b + 1) * Tw], Tw)
+                with _span(f"alsoft.slot.{slot.effect_type}"):
+                    cb, rb, state[f"slot{i}"] = slot.state.process(
+                        state[f"slot{i}"], cfg[f"slot{i}"],
+                        wet[i, :, b * Tw:(b + 1) * Tw], Tw)
                 dry = cb if dry is None else dry + cb
                 if rb is not None:
                     real = rb if real is None else real + rb
@@ -898,6 +939,7 @@ class RenderDevice:
         state["direct_split"].copy_(sp2)
         return hrtf_mix.direct_hrtf_accum(scaled, self._direct_coeffs, W)
 
+    @_ranged("alsoft.decode")
     def _decode(self, state: dict, dry):
         """The dry bus [n_dry, T] to the speakers [n_real, T]: the dual-band
         decode (band split, then dec_hf @ hp + dec_lf @ lp), the single-band
@@ -907,6 +949,7 @@ class RenderDevice:
         if self.layout.uhj_output or self.layout.tsme_output:
             return self._stereo_encode(state, dry)
         if self._dec_lf is not None:
+            self.decode_blocks_dual += 1
             hp, lp, sp2 = self._splitter.split(dry, state["split_state"])
             state["split_state"].copy_(sp2)
             out = (torch.matmul(self._dec_hf, hp)
@@ -1488,6 +1531,9 @@ class RenderDevice:
         for ctx in self.contexts:
             log.trace("host mirror: %d voice advances batched, %d stepped",
                       ctx.mirror_voices_batched, ctx.mirror_voices_stepped)
+        log.trace("block path: slot blocks %s, %d filter rows, %d dual-band "
+                  "decodes", dict(self.slot_blocks), self.filter_rows,
+                  self.decode_blocks_dual)
 
     def clock_ns(self) -> int:
         """ALC_DEVICE_CLOCK_SOFT: nanoseconds of samples rendered."""

@@ -35,7 +35,11 @@
 //    that increment, and more, shorter windows for a larger one: every
 //    increment is exact).  Frame d of a window holds
 //
-//      win[d] = s0 + d >= 0 && src_len > 0 ? pool[clamp(off + idx(d))] : 0
+//      win[d] = (s0 + d >= 0 || wrapped) && src_len > 0
+//               ? pool[clamp(off + idx(d))] : 0
+//
+//    (wrapped: a looping voice that has wrapped; its frames before
+//    loop_start are the loop's last ones, even at loop_start 0)
 //
 //    where, with a = resolve(s0) and n1 the frames of the run that starts
 //    there (up to loop_end, or to the last frame without a loop),
@@ -207,6 +211,7 @@ __device__ __forceinline__ void stage_window(float* buf,
                                              bool vec) {
   const int end = w.sh + w.span;
   const bool audible = p.len > 0;
+  const bool wrapped = p.has_loop && p.has_wrapped;
   for (int q = threadIdx.x; 4 * q < end; q += kThreads) {
     const int d0 = 4 * q - w.sh;
     const long long g0 = w.g + d0;   // a multiple of 4
@@ -229,7 +234,8 @@ __device__ __forceinline__ void stage_window(float* buf,
       }
       long long ad = p.off + idx;
       ad = ad < 0 ? 0 : (ad >= pool_len ? pool_len - 1 : ad);
-      copy4(buf + 4 * q + k, pool + ad, audible && w.s0 + d >= 0);
+      copy4(buf + 4 * q + k, pool + ad,
+            audible && (w.s0 + d >= 0 || wrapped));
     }
   }
   commit();

@@ -222,10 +222,12 @@ class ReverbEffect(EffectState):
             setattr(self, name, max(getattr(self, name), 2 * self.chunk,
                                     1024))
 
+        # ReverbState::deviceUpdate: the upmix's HF scales follow the
+        # device's 2D mixing (GetHFOrderScales(1, order, m2DMixing)).
         self.upmix = device.layout.ambi_order > 1
         if self.upmix:
             self.order_scales = ambidefs.hf_order_scales(
-                1, device.layout.ambi_order, horizontal_only=False)
+                1, device.layout.ambi_order, device.layout.m2d_mixing)
             self.first_order_up = ambidefs.first_order_up()
         self._splitter_coeff = None
 

@@ -104,8 +104,13 @@ def biquad_consts(cf_all: torch.Tensor, chunk: int = SAMPLES_PER_STEP) -> dict:
     similarity transform s1 -> s1/delta, delta = sqrt(|a2|) from chunk 0,
     keeps A^k near a rotation for complex pole pairs (near-DC shelves).
     Returns the per-chunk A, B, b0, A^chunk (by repeated squaring) and the
-    rows C*A^k (k < chunk) of the initial-state response.
+    rows C*A^k (k < chunk) of the initial-state response, each worked out
+    in float64 and rounded once to ``cf_all``'s dtype: in float32 the
+    squarings and the 32-step rows carry the round-off of every step into
+    the constants, which a reverb's feedback loop then recirculates.
     """
+    dtype = cf_all.dtype
+    cf_all = cf_all.to(torch.float64)
     b0 = cf_all[..., 0]
     a1c, a2c = cf_all[..., 3], cf_all[..., 4]
     delta = torch.sqrt(torch.clamp(a2c[0].abs(), min=1e-8))[None, :]  # [1, L]
@@ -123,9 +128,11 @@ def biquad_consts(cf_all: torch.Tensor, chunk: int = SAMPLES_PER_STEP) -> dict:
         ws0.append(w0)
         ws1.append(w1)
         w0, w1 = A00 * w0 + A10 * w1, A01 * w0 + A11 * w1
-    return {"b0": b0, "A": (A00, A01, A10, A11), "B": (B0, B1),
-            "M": (M00, M01, M10, M11), "delta": delta,
-            "ws": (torch.stack(ws0), torch.stack(ws1)), "chunk": chunk}
+    r = lambda t: t.to(dtype)  # noqa: E731
+    return {"b0": r(b0), "A": tuple(map(r, (A00, A01, A10, A11))),
+            "B": (r(B0), r(B1)), "M": tuple(map(r, (M00, M01, M10, M11))),
+            "delta": r(delta),
+            "ws": (r(torch.stack(ws0)), r(torch.stack(ws1))), "chunk": chunk}
 
 
 def biquad_apply(x: torch.Tensor, z: torch.Tensor, k: dict):

@@ -60,7 +60,10 @@ def resolve_source_index(s: torch.Tensor, loop_start: torch.Tensor,
     Loop wrap per LoadBufferStatic (voice.cpp:509-529), forward past
     loop_end and, once the voice has wrapped, backward below loop_start;
     non-looping sources clamp to the final frame; negative positions
-    (delayed starts) and empty sources are silent.
+    (delayed starts) and empty sources are silent.  A looping voice that
+    has wrapped has no negative position: its frames before loop_start
+    are the loop's last ones, even at loop_start 0 (a voice rebased onto
+    the loop's first frame reads its history from the loop's end).
     """
     ls = loop_start[:, None]
     loop_len = torch.clamp(loop_end - loop_start, min=1)[:, None]
@@ -69,7 +72,8 @@ def resolve_source_index(s: torch.Tensor, loop_start: torch.Tensor,
     clamped = torch.where(has_loop[:, None], wrapped,
                           torch.minimum(s, torch.clamp(src_len - 1,
                                                        min=0)[:, None]))
-    valid = (s >= 0) & (src_len[:, None] > 0)
+    valid = (((s >= 0) | (has_loop & has_wrapped)[:, None])
+             & (src_len[:, None] > 0))
     return clamped, valid
 
 

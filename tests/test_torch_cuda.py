@@ -81,13 +81,12 @@ def test_port_on_the_card_matches_the_cpu(cuda):
 
 ONE = 1 << 16
 # chip_smoke.WINDOW_CASES as (W, taps, increments, kind): ragged widths,
-# taps 48 at 10x, loops of 1-3 frames.
+# taps 48 at 10x, loops of 1-3 frames, loops from frame 0.
 WINDOW_CASES = [c[1:] for c in chip_smoke.WINDOW_CASES]
 
 
 def _window_case(W, taps, incs, kind, cuda):
-    make = (chip_smoke.short_loop_case if kind == "short_loops"
-            else chip_smoke.span_case)
+    make = chip_smoke.CASE_KINDS[kind]
     return make(np.random.default_rng(taps + W), 256, W, taps, incs, cuda)
 
 

@@ -424,16 +424,25 @@ def test_reverb_pans_above_first_order(channels):
     """C9: an EAXReverb slot on an order-2 device (surround51's decoder,
     order-2 Ambi3D) builds its pan gains in the upsampler's 25-column
     space and renders; on first-order devices the gains are the
-    16-column rows' as before."""
+    16-column rows' as before.  The upmix's high band takes the 2D order
+    scales on surround51's horizontal decoder and the 3D ones on Ambi3D
+    (ReverbState::deviceUpdate passes the device's 2D mixing); the JAX
+    package has no reverb above first order to compare with."""
     kw = {"ambi_order": 2} if channels == "ambi3d" else {}
     dev = TorchLoopback(frequency=48000, channels=channels, hrtf=False,
                         capacity=4, device="cpu", **kw)
     assert dev.layout.ambi_order == 2
+    assert dev.layout.m2d_mixing == (channels == "surround51")
     ctx = dev.create_context()
     slot = ctx.create_aux_slot()
     eff = ctx.create_effect("eaxreverb")
     eff.set("reflections_pan", (0.3, 0.1, -0.4))
     slot.set_effect(eff)
+    # HF2DScales / HFScales, orders 1 and 2 (core/ambidefs.cpp:37-55).
+    w_up = 2.236067977 / 1.825741858 if channels == "surround51" \
+        else 4.0 / 2.981423970
+    np.testing.assert_allclose(slot.state.order_scales[:3], [w_up, 1, 1],
+                               rtol=1e-6)
     early, late = slot.state._pan_gains(np.array([0.3, 0.1, -0.4]),
                                         np.zeros(3), 1.0, 1.0)
     want = _pan_rows_f64(slot.state, np.array([0.3, 0.1, -0.4]))

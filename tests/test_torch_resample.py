@@ -65,6 +65,19 @@ def _voices(seed: int, resampler: Resampler, unit: bool):
 
 
 def _jax_resample(args, taps: int, n: int = N) -> np.ndarray:
+    """The JAX package's render of the same voices.  Its valid mask
+    silences every negative frame, also those of a looping voice that has
+    wrapped, where the port reads the loop's last frames: such a voice
+    whose window reaches below frame 0 reads the same frames from a
+    position whole loops later, where no frame is negative, so the JAX
+    package is handed that one.  Every other voice keeps its position, so
+    the backward wrap above frame 0 is compared on the same inputs."""
+    (pool, src_off, src_len, ls, le, hl, hw, pos_int, *rest) = args
+    loop_len = np.maximum(le - ls, 1)
+    lift = -(-(taps + 256) // loop_len) * loop_len
+    below_0 = hl & hw & (pos_int - taps < 0)
+    pos_int = np.where(below_0, pos_int + lift, pos_int).astype(np.int32)
+    args = (pool, src_off, src_len, ls, le, hl, hw, pos_int, *rest)
     fn = jax.jit(lambda *a: j_rs.resample_voices(*a, BANK, n, taps))
     return np.asarray(fn(*[jnp.asarray(a) for a in args]))
 
@@ -168,7 +181,12 @@ def test_resolve_source_index_matches_jax():
     ti, tv = t_rs.resolve_source_index(*[torch.tensor(a) for a in
                                          (s, ls, le, hl, hw, ln)])
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # A looping voice that has wrapped reads its negative frames from the
+    # loop's end, where the JAX package silences them.
+    wrapped_below_0 = (hl & hw & (ln > 0))[:, None] & (s < 0)
+    assert wrapped_below_0.any()
+    np.testing.assert_array_equal(tv.numpy(),
+                                  np.asarray(jv) | wrapped_below_0)
 
 
 @pytest.mark.parametrize("resampler", TIERS, ids=lambda r: r.name)
@@ -286,7 +304,8 @@ def _staged_frames(pool, off: int, length: int, ls: int, le: int,
     """What csrc/resample_window.cuh stage_window writes for the frames
     s0 .. s0 + span - 1 of one voice: run A from a = resolve(s0) (up to
     loop_end, or the last frame), then the loop's frames one by one
-    (d - n1) mod loop_len or the end clamp, silence staged as 0.  Returns
+    (d - n1) mod loop_len or the end clamp, silence staged as 0 (before
+    frame 0, unless the voice loops and has wrapped).  Returns
     the window and its pool address g = off + a, whose alignment g & 3 is
     where frame 0 sits in the buffer."""
     P = pool.numel()
@@ -303,7 +322,7 @@ def _staged_frames(pool, off: int, length: int, ls: int, le: int,
     d = torch.arange(span)
     tail = ls + (d - n1) % L if loop else torch.full_like(d, last)
     idx = torch.where(d < n1, a + d, tail)
-    valid = (s0 + d >= 0) & (length > 0)
+    valid = ((s0 + d >= 0) | (loop and wrapped)) & (length > 0)
     return torch.where(valid, pool[(off + idx).clamp(0, P - 1)], 0.0), off + a
 
 
@@ -356,20 +375,19 @@ def _staged_window_model(args, n: int, taps: int, cap: int,
     return out
 
 
-@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("kind", ["branches", "short_loops", "zero_start"])
 @pytest.mark.parametrize("taps", [1, 4, 48])
 def test_staged_window_model_equals_plain_version(kind, taps):
     """What the staged-window kernels stage (window bounds per tile, run
     or frame-by-frame fill, end clamp, weight tables) gives
     resample_voices bit for bit, over chip_smoke's branch cases (loop
     seams, short loops, backward wraps, end clamps, pre-start silence,
-    empty sources, buffers at the pool's end) and loops of 1-3 frames,
+    empty sources, buffers at the pool's end) loops of 1-3 frames and loops from frame 0,
     at 0.25x-10x; with the window sized for the largest increment, and
     for a smaller one (more, shorter windows per tile)."""
     import chip_smoke
 
-    make = (chip_smoke.short_loop_case if kind == "short_loops"
-            else chip_smoke.span_case)
+    make = chip_smoke.CASE_KINDS[kind]
     rng = np.random.default_rng(21 + taps)
     for V, W in ((64, 100), (16, 2048)):
         args = make(rng, V, W, taps, (MIXER_FRAC_ONE // 4,
@@ -440,7 +458,7 @@ def _tile_for(W: int) -> int:
     return -(-(-(-W // tiles)) // 256) * 256
 
 
-@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("kind", ["branches", "short_loops", "zero_start"])
 @pytest.mark.parametrize("taps", [1, 4, 48])
 def test_unit_window_model_equals_plain_versions(kind, taps):
     """What the unit kernel stages and computes (tiles, windows of equal
@@ -448,15 +466,14 @@ def test_unit_window_model_equals_plain_versions(kind, taps):
     gives resample_unit_ref, and resample_voices at unit increment, bit
     for bit: over chip_smoke's branch cases (loop seams, short loops,
     backward wraps, end clamps, pre-start silence, empty sources, buffers
-    at the pool's end) or loops of 1-3 frames, at ragged widths; with the
+    at the pool's end) loops of 1-3 frames or loops from frame 0, at ragged widths; with the
     kernel's window and tile, and with short ones (several windows and
     tiles per row)."""
     import chip_smoke
 
     rng = np.random.default_rng(31 + taps)
     for V, W in ((64, 1), (64, 100), (32, 1023), (16, 2048)):
-        gen = (chip_smoke.short_loop_case if kind == "short_loops"
-               else chip_smoke.span_case)(rng, V, W, taps,
+        gen = chip_smoke.CASE_KINDS[kind](rng, V, W, taps,
                                           (MIXER_FRAC_ONE, MIXER_FRAC_ONE),
                                           "cpu")
         args = (*gen[:8], chip_smoke.unit_weights(gen, taps))
@@ -467,7 +484,7 @@ def test_unit_window_model_equals_plain_versions(kind, taps):
             assert torch.equal(got, want), (V, W, tile, window)
 
 
-@pytest.mark.parametrize("kind", ["branches", "short_loops"])
+@pytest.mark.parametrize("kind", ["branches", "short_loops", "zero_start"])
 @pytest.mark.parametrize("taps", [1, 4, 48])
 def test_voice_schedule_model_equals_plain_version(kind, taps):
     """K5's schedule (one tile per row, whatever its length, cut into
@@ -476,8 +493,7 @@ def test_voice_schedule_model_equals_plain_version(kind, taps):
     within the wrapper's largest bucket."""
     import chip_smoke
 
-    make = (chip_smoke.short_loop_case if kind == "short_loops"
-            else chip_smoke.span_case)
+    make = chip_smoke.CASE_KINDS[kind]
     rng = np.random.default_rng(41 + taps)
     for V, W in ((64, 1), (64, 100), (16, 1023)):
         args = make(rng, V, W, taps, (MIXER_FRAC_ONE // 4,
