@@ -189,6 +189,17 @@ result:
                 one card) within 1e-5 x max(1, peak) of it, resample_gen,
                 reverb and biquad launched on each rank; wall ms per block
                 of each; then dryrun_multichip(1) at its defaults
+ 35. kernel     (35-36 run after 13) band_split against its plain
+                version (the sequential splitter): split, hf_scale in both state-update variants
+                and scale, D 1, 4, 5, 16 and 33 (two blocks) at T 32 and
+                1024, D 4 at T 16384, state carried over two calls from a
+                nonzero start, one launch a call: bit-equal required
+ 36. timing     band_split at the speaker path's shapes (a zone's upmix,
+                [4, 1024] hf_scale; 5.1's decode, [5, 1024] split) and the
+                HRTF dry bus's 16-block super-block ([4, 16384] hf_scale):
+                device time and CUDA events through the wrapper, the chain
+                floor, the plain version, and the chunk-parallel chain the
+                card ran before with its device operations; bit-equal
 
 Every kernel's launch count is set to 0 just before its scene's timed call
 and must have grown just after it.  Then the kernels' JSON line, the card's
@@ -206,6 +217,7 @@ fx_rack's profile records 16 blocks after an unprofiled 512-block call).
 
 runs phases 1-3, 7 (resample_gen only) and 16-17: every resampler kernel
 (K1, K3, K4, K5) against its plain version, in a few minutes.
+
 """
 
 from __future__ import annotations
@@ -213,6 +225,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -237,7 +250,7 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 FX_TOL = 1e-4              # effect parity, the engines' golden budget
 FX_PSHIFT_TOL = 1e-3       # the pitch shifter's bin pick can flip
 KERNELS = ("resample_unit", "resample_gen", "reverb", "biquad",
-           "resample_span", "resample_voice", "effect_scan")
+           "resample_span", "resample_voice", "effect_scan", "band_split")
 REPLACES = {
     "resample_unit": "openal_soft_tpu/ops/pallas/resample_unit.py:284",
     "resample_gen": "openal_soft_tpu/ops/pallas/resample3.py:113",
@@ -248,6 +261,9 @@ REPLACES = {
     "effect_scan": "no TPU kernel: the lax.scan recurrences of "
                    "openal_soft_tpu/effects/compressor.py:49 and "
                    "autowah.py:55,77",
+    "band_split": "no TPU kernel: the lax.scan splitters of "
+                  "openal_soft_tpu/ops/filters.py:299,321,356 and "
+                  "BandSplitterKernels' chunk chain (:379)",
 }
 
 
@@ -1108,7 +1124,8 @@ def phase_uhj_big_pool(wrappers: dict, report: dict, smi: str) -> None:
                              f"[{frames}, 2]: shape {out.shape}, "
                              f"finite {finite}, peak {peak}")
     if not (launches["resample_span"] > 0 and launches["resample_gen"] == 0
-            and launches["biquad"] > 0 and pool_bytes >= 900e6):
+            and launches["biquad"] > 0 and launches["band_split"] > 0
+            and pool_bytes >= 900e6):
         raise AssertionError(f"uhj_big_pool: pool {pool_bytes} bytes, "
                              f"launches {launches}")
 
@@ -1789,6 +1806,272 @@ def phase_biquad_timings(cuda, report: dict, smi: str) -> None:
                               cnt)) if lib is not None else None)
 
 
+def phase_loaded(wrappers: dict, report: dict, smi: str) -> None:
+    """Phases 10-11: bench.py's loaded scene at full width through the
+    port's entry points, one warm and one timed 512-block call; then at 64
+    voices on the card against the port on the CPU."""
+    import torch
+
+    frames = CHUNK_BLOCKS * BLOCK
+    t0 = time.perf_counter()
+    dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev.render_samples(frames)                       # warm
+    warm_s = time.perf_counter() - t0
+    for name in KERNELS:
+        wrappers[name].launches = 0
+    t0 = time.perf_counter()
+    out = dev.render_samples(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: wrappers[name].launches for name in KERNELS}
+    for name in ("resample_gen", "reverb", "band_split"):
+        report[name]["launches"] = launches[name]
+    finite = bool(np.isfinite(out).all())
+    peak = float(np.abs(out).max())
+    emit({"phase": "loaded", "voices": N_VOICES, "frames": frames,
+          "setup_s": setup_s, "warm_s": warm_s, "render_s": dt,
+          "x_realtime": (frames / RATE) / dt, "launches": launches,
+          "finite": finite, "peak": peak, "shape": list(out.shape),
+          "nvidia_smi": smi})
+    if out.shape != (frames, 2) or not finite or not peak > 0.0:
+        raise AssertionError("loaded output is not finite, nonzero "
+                             f"[{frames}, 2]: shape {out.shape}, "
+                             f"finite {finite}, peak {peak}")
+    if not all(launches[k] > 0 for k in ("resample_gen", "reverb",
+                                         "band_split")):
+        raise AssertionError(f"loaded skipped a kernel: {launches}")
+    del dev, out
+
+    g = bench_scene(64, 64, "cuda", loaded=True)
+    c = bench_scene(64, 64, "cpu", loaded=True)
+    for n, path in ((8192, "fused"), (4096, "per-block"), (100, "odd"),
+                    (924, "odd")):
+        a, b = g.render_samples(n), c.render_samples(n)
+        err = float(np.abs(a - b).max())
+        emit({"phase": "parity", "scene": "loaded", "frames": n,
+              "path": path, "max_abs_err": err, "tol": LOADED_TOL,
+              "peak": float(np.abs(b).max())})
+        if not (np.isfinite(a).all() and err <= LOADED_TOL):
+            raise AssertionError(f"loaded GPU vs CPU port at {n} frames: "
+                                 f"{err}")
+
+
+def phase_speakers_parity() -> None:
+    """Phase 15: the filtered scenes of SPEAKER_SCENES at 64 voices on the
+    card against the port on the CPU; each must launch biquad, the HRTF
+    scene's dry bus the band splitter, and surround51 two band splits a
+    block: the dual-band decode's and the front stabilizer's."""
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    for name in SPEAKER_SCENES:
+        g = speaker_scene(name, 64, "cuda")
+        c = speaker_scene(name, 64, "cpu")
+        before = biq.biquad_dual.launches
+        splits = bs_k.band_split.launches
+        duals = g.decode_blocks_dual
+        for n, path in ((8192, "multi-block"), (4096, "per-block"),
+                        (100, "odd"), (924, "odd")):
+            a, b = g.render_samples(n), c.render_samples(n)
+            err = float(np.abs(a - b).max())
+            emit({"phase": "parity", "scene": name, "frames": n,
+                  "path": path, "channels": int(b.shape[1]),
+                  "max_abs_err": err, "tol": SPEAKERS_TOL,
+                  "peak": float(np.abs(b).max())})
+            if not (np.isfinite(a).all() and err <= SPEAKERS_TOL):
+                raise AssertionError(f"{name} GPU vs CPU port at {n} "
+                                     f"frames: {err}")
+        splits = bs_k.band_split.launches - splits
+        duals = g.decode_blocks_dual - duals
+        emit({"phase": "parity", "scene": name, "band_split_launches":
+              splits, "dual_band_decodes": duals, "front_stabilizer":
+              g._stab is not None,
+              "biquad_launches": biq.biquad_dual.launches - before})
+        if biq.biquad_dual.launches <= before:
+            raise AssertionError(f"{name} never launched biquad")
+        if name == "hrtf" and splits <= 0:
+            raise AssertionError("hrtf never launched band_split")
+        if name == "surround51" and not (g._stab is not None and duals > 0
+                                         and splits == 2 * duals):
+            raise AssertionError(f"surround51: {splits} band splits over "
+                                 f"{duals} dual-band decodes, stabilizer "
+                                 f"{g._stab is not None}")
+
+
+# --- the band splitter (phases 35-36) -----------------------------------------
+
+# (mode, variant_3arg): the dual-band decode's split, the reverb upmix's and
+# the HRTF dry bus's HF scale (the latter in the out-of-place variant), the
+# UHJ2 shelf's and the convolution upmix's scale.
+BAND_SPLIT_MODES = (("split", False), ("hf_scale", False),
+                    ("hf_scale", True), ("scale", False))
+BAND_SPLIT_CASES = tuple((D, T) for D in (1, 4, 5, 16, 33)
+                         for T in (32, BLOCK)) + ((4, 16 * BLOCK),)
+# The speaker path's calls and the HRTF dry bus's super-block call: (name,
+# rows, samples, mode, variant_3arg).
+BAND_SPLIT_SHAPES = (("upmix", 4, BLOCK, "hf_scale", False),
+                     ("decode", 5, BLOCK, "split", False),
+                     ("super_block", 4, 16 * BLOCK, "hf_scale", True))
+# Float operations per row-sample: the three recurrences and hp (13), then
+# each mode's epilogue.
+BAND_SPLIT_FLOPS = {"split": 13, "hf_scale": 15, "scale": 16}
+
+
+def band_split_args(rng, D: int, mode: str, v3: bool, device):
+    """(coeff, state [D, 3], gains): the HRTF dry bus's 700 Hz crossover
+    for the out-of-place variant, the speakers' 400 Hz otherwise; a
+    nonzero state; per-row gains in [0.5, 1.5] as the mode reads them."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import filters as f_ops
+
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    coeff = float(f_ops.band_splitter_coeff((700.0 if v3 else 400.0) / RATE))
+    st = f(rng.standard_normal((D, 3)) * 0.1)
+    gains = [f(rng.uniform(0.5, 1.5, D)) for _ in range(2)]
+    return coeff, st, {"split": [], "hf_scale": gains[:1],
+                       "scale": gains}[mode]
+
+
+def band_split_calls(rng, D: int, T: int, mode: str, v3: bool, device):
+    """Two calls of the band-split wrapper and two of its plain version
+    over fresh noise, each carrying its own state from the same nonzero
+    start: (the wrapper's outputs, the plain version's, the kernel's
+    launches over the two calls)."""
+    import torch
+
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+
+    coeff, st, gains = band_split_args(rng, D, mode, v3, device)
+    got, want = [], []
+    k_st = p_st = st
+    before = bs_k.band_split.launches
+    for _ in range(2):
+        x = torch.tensor((rng.standard_normal((D, T)) * 0.25).astype(
+            np.float32), device=device)
+        k = bs_k.band_split(x, k_st, coeff, mode, *gains, variant_3arg=v3)
+        p = bs_k.band_split_ref(x, p_st, coeff, mode, *gains,
+                                variant_3arg=v3)
+        got, want = got + list(k), want + list(p)
+        k_st, p_st = k[-1], p[-1]
+    torch.cuda.synchronize()
+    return got, want, bs_k.band_split.launches - before
+
+
+def check_band_split_kernel(cuda) -> float:
+    """Phase 35: the band-split kernel bit-equal to its plain version in
+    every mode (split, hf_scale in both variants, scale), outputs and
+    carried state, over two calls from a nonzero state, at BAND_SPLIT_CASES
+    (33 rows: two blocks); one launch a call."""
+    import torch
+
+    rng = np.random.default_rng(18)
+    max_err = 0.0
+    for D, T in BAND_SPLIT_CASES:
+        for mode, v3 in BAND_SPLIT_MODES:
+            got, want, launches = band_split_calls(rng, D, T, mode, v3, cuda)
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, want))
+            emit({"phase": "kernel", "name": "band_split", "D": D, "T": T,
+                  "mode": mode, "variant_3arg": v3, "calls": 2,
+                  "launches": launches, "max_abs_err": err,
+                  "bit_equal": equal})
+            if not equal or launches != 2:
+                raise AssertionError(f"band_split != plain at D {D}, T {T}, "
+                                     f"{mode} (3arg {v3}): {err}, "
+                                     f"{launches} launches")
+            max_err = max(max_err, err)
+    return max_err
+
+
+def device_ops(fn, calls: int = 1) -> float:
+    """The device operations (kernels, copies, fills) of one call of fn,
+    counted by torch.profiler over ``calls`` calls.  A session can miss a
+    few kernels (on the card one session of one band_split call read none
+    after phase 13), so a count over many calls is the surer one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def phase_band_split_timings(cuda, report: dict, smi: str) -> None:
+    """Phase 36: the band-split kernel at BAND_SPLIT_SHAPES (each zone's
+    upmix, the 5.1 decode's split, the HRTF dry bus over a 16-block
+    super-block): its wrapper by CUDA events (50 calls) and by device time
+    (torch.profiler), beside its bound, its chain floor (T x one chain
+    sample's ns from the biquad kernel's probe: the same four dependent
+    operations a sample), its plain version, and the chunk-parallel form
+    the card ran before (BandSplitterKernels' chain on CUDA tensors, its
+    epilogue left out), each with its device operations a call counted
+    over 20 calls; bit-equal and one launch a call (the wrapper's count) at
+    each shape.  The JSON line's band_split row sums the speaker path's
+    five calls a block (four upmixes, one decode)."""
+    import torch
+
+    from openal_soft_tpu_torch.ops import filters as f_ops
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+    from openal_soft_tpu_torch.ops.kernels import biquad as biq
+
+    cycles, ns = biq.chain_probe(1 << 20, cuda)
+    ns_per_sample = ns / (1 << 20)
+    rng = np.random.default_rng(19)
+    per_block = {"ms": 0.0, "event_ms": 0.0, "chunked_ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "chain_floor_ms": 0.0}
+    by = set()
+    for name, D, T, mode, v3 in BAND_SPLIT_SHAPES:
+        coeff, st, gains = band_split_args(rng, D, mode, v3, cuda)
+        x = torch.tensor((rng.standard_normal((D, T)) * 0.25).astype(
+            np.float32), device=cuda)
+        kernel = lambda: bs_k.band_split(  # noqa: E731
+            x, st, coeff, mode, *gains, variant_3arg=v3)
+        plain = lambda: bs_k.band_split_ref(  # noqa: E731
+            x, st, coeff, mode, *gains, variant_3arg=v3)
+        chunked = functools.partial(
+            f_ops.BandSplitterKernels(coeff, v3)._run, x, st)
+        equal = all(torch.equal(a, b) for a, b in zip(kernel(), plain()))
+        outs = 2 if mode == "split" else 1
+        bound_ms, bound_by = bound(
+            4 * (D * T * (1 + outs) + 2 * 3 * D + len(gains) * D),
+            BAND_SPLIT_FLOPS[mode] * D * T)
+        row = {"phase": "timing", "name": "band_split", "call": name, "D": D,
+               "T": T, "mode": mode, "variant_3arg": v3,
+               "ms": device_ms(kernel, 50, 5),
+               "event_ms": cuda_ms(kernel, 50, 5),
+               "chunked_ms": device_ms(chunked, 20, 2),
+               "chunked_event_ms": cuda_ms(chunked, 20, 2),
+               "chunked_device_ops": device_ops(chunked, 20),
+               "device_ops": device_ops(kernel, 20),
+               "plain_ms": cuda_ms(plain, 1, 1), "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "chain_floor_ms": T * ns_per_sample * 1e-6,
+               "sm_GHz": cycles / ns, "bit_equal": equal, "nvidia_smi": smi}
+        launches = bs_k.band_split.launches
+        kernel()
+        row["launches"] = bs_k.band_split.launches - launches
+        emit(row)
+        if not equal or row["launches"] != 1:
+            raise AssertionError(f"band_split at {name}: bit-equal {equal}, "
+                                 f"{row['launches']} launches a call")
+        if name != "super_block":
+            n = 4 if name == "upmix" else 1
+            for k in per_block:
+                per_block[k] += n * row[k]
+            by.add(bound_by)
+    report["band_split"].update(
+        per_block, bound_by="bytes" if by == {"bytes"} else "operations")
+
+
 # --- the effect engines (phases 21-25) ----------------------------------------
 
 # fx_rack's engines and their properties: one slot per engine name in the
@@ -2141,17 +2424,7 @@ def phase_effect_scan_timings(cuda, report: dict, smi: str) -> None:
 def launches_per_block(dev, frames: int) -> float:
     """Device operations (kernels, copies, fills) per 1024-frame block of
     one render call, counted by torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        dev.render_samples(frames)
-        torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA)
-    return n / (frames / BLOCK)
+    return device_ops(lambda: dev.render_samples(frames)) / (frames / BLOCK)
 
 
 def engine_costs(dev) -> dict:
@@ -3198,6 +3471,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--profile"]:
         profile(sys.argv[2], nvidia_smi(), seed)
         return 0
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
     from openal_soft_tpu_torch.ops.kernels import biquad as biq
     from openal_soft_tpu_torch.ops.kernels import resample_gen as rs_gen
     from openal_soft_tpu_torch.ops.kernels import resample_span as rs_span
@@ -3214,6 +3488,7 @@ def main() -> int:
     wrappers["resample_span"] = rs_span.resample_span
     wrappers["resample_voice"] = rs_voice.resample_voice
     wrappers["effect_scan"] = EffectScanCount()
+    wrappers["band_split"] = bs_k.band_split
     report = {name: {"name": name, "route": "cuda",
                      "source": f"openal_soft_tpu_torch/csrc/{name}.cu",
                      "replaces": REPLACES[name], "library_ms": None}
@@ -3336,55 +3611,17 @@ def main() -> int:
     del gargs, gsl, want
     phase_reverb_timings(cuda, report, smi)
 
-    # 10. loaded at full width through the port's entry points
-    t0 = time.perf_counter()
-    dev = bench_scene(N_VOICES, N_VOICES, "cuda", loaded=True)
-    setup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dev.render_samples(frames)                       # warm
-    warm_s = time.perf_counter() - t0
-    for name in KERNELS:
-        wrappers[name].launches = 0
-    t0 = time.perf_counter()
-    out = dev.render_samples(frames)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {name: wrappers[name].launches for name in KERNELS}
-    for name in ("resample_gen", "reverb"):
-        report[name]["launches"] = launches[name]
-    finite = bool(np.isfinite(out).all())
-    peak = float(np.abs(out).max())
-    emit({"phase": "loaded", "voices": N_VOICES, "frames": frames,
-          "setup_s": setup_s, "warm_s": warm_s, "render_s": dt,
-          "x_realtime": (frames / RATE) / dt, "launches": launches,
-          "finite": finite, "peak": peak, "shape": list(out.shape),
-          "nvidia_smi": smi})
-    if out.shape != (frames, 2) or not finite or not peak > 0.0:
-        raise AssertionError("loaded output is not finite, nonzero "
-                             f"[{frames}, 2]: shape {out.shape}, "
-                             f"finite {finite}, peak {peak}")
-    if not (launches["resample_gen"] > 0 and launches["reverb"] > 0):
-        raise AssertionError(f"loaded skipped a kernel: {launches}")
-    del dev, out
-
-    # 11. loaded on the card against the port on the CPU
-    g = bench_scene(64, 64, "cuda", loaded=True)
-    c = bench_scene(64, 64, "cpu", loaded=True)
-    for n, path in ((8192, "fused"), (4096, "per-block"), (100, "odd"),
-                    (924, "odd")):
-        a, b = g.render_samples(n), c.render_samples(n)
-        err = float(np.abs(a - b).max())
-        emit({"phase": "parity", "scene": "loaded", "frames": n,
-              "path": path, "max_abs_err": err, "tol": LOADED_TOL,
-              "peak": float(np.abs(b).max())})
-        if not (np.isfinite(a).all() and err <= LOADED_TOL):
-            raise AssertionError(f"loaded GPU vs CPU port at {n} frames: "
-                                 f"{err}")
+    # 10-11. loaded at full width, then on the card against the CPU
+    phase_loaded(wrappers, report, smi)
 
     # 12-13. the biquad kernel against its plain version, then timed at the
     # main path's shapes
     report["biquad"]["max_abs_err"] = check_biquad_kernel(cuda)
     phase_biquad_timings(cuda, report, smi)
+
+    # 35-36. the band splitter against its plain version, then timed
+    report["band_split"]["max_abs_err"] = check_band_split_kernel(cuda)
+    phase_band_split_timings(cuda, report, smi)
 
     # 14. speakers_filtered at full width through the port's entry points
     t0 = time.perf_counter()
@@ -3425,23 +3662,7 @@ def main() -> int:
     del dev, out, out2
 
     # 15. the filtered scenes on the card against the port on the CPU
-    for name in SPEAKER_SCENES:
-        g = speaker_scene(name, 64, "cuda")
-        c = speaker_scene(name, 64, "cpu")
-        before = biq.biquad_dual.launches
-        for n, path in ((8192, "multi-block"), (4096, "per-block"),
-                        (100, "odd"), (924, "odd")):
-            a, b = g.render_samples(n), c.render_samples(n)
-            err = float(np.abs(a - b).max())
-            emit({"phase": "parity", "scene": name, "frames": n,
-                  "path": path, "channels": int(b.shape[1]),
-                  "max_abs_err": err, "tol": SPEAKERS_TOL,
-                  "peak": float(np.abs(b).max())})
-            if not (np.isfinite(a).all() and err <= SPEAKERS_TOL):
-                raise AssertionError(f"{name} GPU vs CPU port at {n} "
-                                     f"frames: {err}")
-        if biq.biquad_dual.launches <= before:
-            raise AssertionError(f"{name} never launched biquad")
+    phase_speakers_parity()
 
     # 16-17. the span and per-voice resamplers against their plain versions
     check_span_voice_kernels(cuda, report)

@@ -70,6 +70,7 @@ from ..ops import mix as mix_ops
 from ..ops import nfc as nfc_ops
 from ..ops import resample as rs_ops
 from ..ops import uhj as uhj_ops
+from ..ops.kernels import band_split as bs_k
 from ..ops.kernels import biquad as biq
 from ..ops.kernels import resample_gen as rs_gen
 from ..ops.kernels import resample_span as rs_span
@@ -547,10 +548,12 @@ class RenderDevice:
         # What the block path ran (logged when the device closes): blocks
         # each slot's engine processed, by engine; filter rows K7 ran
         # (direct and send paths, one row a voice a path a launch); blocks
-        # through the dual-band decode.
+        # through the dual-band decode; the band-split kernel's launches
+        # (counted for the process) from here on.
         self.slot_blocks: collections.Counter = collections.Counter()
         self.filter_rows = 0
         self.decode_blocks_dual = 0
+        self._band_split_launches0 = bs_k.band_split.launches
         self._bank_sl = None   # (taps, bank sliced for the general kernel)
         self._state = self._init_state()
         self._clock_samples = 0
@@ -971,13 +974,16 @@ class RenderDevice:
         The direct (real-out prefill) mid/side terms are zero here, this
         renderer having no direct-channel pre-mix, but their all-pass slots
         still evolve as the reference's: zeros through the L slot, the side
-        signal through the R slot."""
+        signal through the R slot.  The mid splits in one band-split launch
+        on the card (the sequential form on the CPU); the all-pass is still
+        a loop over samples."""
         li, ri, ci = self._stab["idx"]
         coeff = self._stab["coeff"]
         c_pi_3, c_pi_4, s_pi_3, s_pi_4 = self._STAB_PANS
         side = out[li] - out[ri]
         mid = out[li] + out[ri]
-        hf, lf, mid_st = f_ops.band_split(mid[None], state["stab_mid"], coeff)
+        hf, lf, mid_st = bs_k.band_split(mid[None], state["stab_mid"], coeff,
+                                         "split")
         state["stab_mid"].copy_(mid_st)
         ap_in = out.clone()
         ap_in[li] = 0.0
@@ -1532,8 +1538,15 @@ class RenderDevice:
             log.trace("host mirror: %d voice advances batched, %d stepped",
                       ctx.mirror_voices_batched, ctx.mirror_voices_stepped)
         log.trace("block path: slot blocks %s, %d filter rows, %d dual-band "
-                  "decodes", dict(self.slot_blocks), self.filter_rows,
-                  self.decode_blocks_dual)
+                  "decodes, %d band-split launches", dict(self.slot_blocks),
+                  self.filter_rows, self.decode_blocks_dual,
+                  self.band_split_launches)
+
+    @property
+    def band_split_launches(self) -> int:
+        """The band-split kernel's launches since this device opened (in
+        this process: another device's calls in between count too)."""
+        return bs_k.band_split.launches - self._band_split_launches0
 
     def clock_ns(self) -> int:
         """ALC_DEVICE_CLOCK_SOFT: nanoseconds of samples rendered."""

@@ -562,9 +562,8 @@ class ReverbEffect(EffectState):
                 mod_win=self.mod_win,
                 max_late_tap=self._late_tap_max.get(prefix))
             if self.upmix:
-                # The band splitter's chunk-parallel form: the
-                # sample-sequential one (the JAX package's) is ~15 launches
-                # per sample on the card.
+                # One band-split launch each on the card; the CPU takes
+                # the chunk-parallel form for speed.
                 early, pst["split_early"] = self._upmix_split.hf_scale(
                     torch.matmul(tabs["a2b_e"], early), pst["split_early"],
                     tabs["hfs"])

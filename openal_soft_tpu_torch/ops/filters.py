@@ -15,12 +15,14 @@
   arithmetic in the same order.
 * ``linear2_chunked``: a 2-state linear filter, chunk-parallel (the NFC
   sections of ``ops/nfc.py``).
-* ``band_split``, ``band_split_hf_scale`` and ``all_pass``: the sequential
-  band splitter (the front stabiliser; with an HF scale, the reverb's
-  first-order upmix) and the phase-matching all-pass.
-* ``BandSplitterKernels``: the chunk-parallel band splitter of the dry bus
-  (``split`` for the dual-band speaker decode, ``hf_scale`` for the HRTF
-  decode, ``scale``).
+* ``band_split``, ``band_split_hf_scale``, ``band_split_scale`` and
+  ``all_pass``: the sequential band splitter (the front stabiliser; the
+  plain versions of the Hopper kernel ``csrc/band_split.cu``) and the
+  phase-matching all-pass.
+* ``BandSplitterKernels``: the band splitter of the dry bus (``split`` for
+  the dual-band speaker decode, ``hf_scale`` for the HRTF decode and the
+  reverb's upmix, ``scale``): the kernel on the card, the chunk-parallel
+  form on the CPU.
 * the host half: the biquad interpolation schedule and the band-splitter
   coefficient, in numpy.
 
@@ -233,9 +235,13 @@ def linear2_chunked(x: torch.Tensor, s: torch.Tensor, A: torch.Tensor,
 # --- band splitters (core/filters/splitter.cpp) -------------------------------
 
 
-def band_split(x: torch.Tensor, state: torch.Tensor, coeff):
+def band_split(x: torch.Tensor, state: torch.Tensor, coeff,
+               variant_3arg: bool = False):
     """BandSplitter::process, sample by sample: (hp [L, T], lp [L, T],
-    state' [L, 3]); state = (lp_z1, lp_z2, ap_z1)."""
+    state' [L, 3]); state = (lp_z1, lp_z2, ap_z1).  ``variant_3arg``
+    reproduces the out-of-place variant's state update (splitter.cpp:79
+    uses ``lp_z1 = lp_y0 + d0*lp_coeff``, the in-place one ``lp_y0 + d0``,
+    splitter.cpp:113)."""
     ap = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
     lp = ap * 0.5 + 0.5
     lp_z1, lp_z2, ap_z1 = state[:, 0], state[:, 1], state[:, 2]
@@ -243,7 +249,7 @@ def band_split(x: torch.Tensor, state: torch.Tensor, coeff):
     for xin in x.T:
         d0 = (xin - lp_z1) * lp
         lp_y0 = lp_z1 + d0
-        lp_z1 = lp_y0 + d0
+        lp_z1 = lp_y0 + (d0 * lp if variant_3arg else d0)
         d1 = (lp_y0 - lp_z2) * lp
         lp_y1 = lp_z2 + d1
         lp_z2 = lp_y1 + d1
@@ -267,41 +273,46 @@ def all_pass(x: torch.Tensor, z1: torch.Tensor, coeff):
     return torch.stack(ys, 1), z1
 
 
+def _row_gain(g, x: torch.Tensor) -> torch.Tensor:
+    """A gain, scalar or one per row, as a column over x's rows."""
+    return torch.as_tensor(g, dtype=torch.float32,
+                           device=x.device).reshape(-1, 1)
+
+
 def band_split_hf_scale(x: torch.Tensor, state: torch.Tensor, coeff,
                         hfscale, variant_3arg: bool = False):
     """processHfScale: scale the high band, keep the low band; the
     sample-sequential recurrence.  x [L, T], state [L, 3] = (lp_z1, lp_z2,
-    ap_z1), hfscale scalar or [L].  ``variant_3arg`` reproduces the
-    out-of-place variant's state update (splitter.cpp:79).
+    ap_z1), hfscale scalar or [L].  ``variant_3arg`` as ``band_split``.
     Returns (y [L, T], state' [L, 3])."""
-    ap = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
-    lp = ap * 0.5 + 0.5
-    hfs = torch.as_tensor(hfscale, dtype=torch.float32,
-                          device=x.device).reshape(-1)
-    hfs = hfs.expand(x.shape[0])
-    lp_z1, lp_z2, ap_z1 = state[:, 0], state[:, 1], state[:, 2]
-    ys = []
-    for t in range(x.shape[1]):
-        xin = x[:, t]
-        d0 = (xin - lp_z1) * lp
-        lp_y0 = lp_z1 + d0
-        lp_z1 = lp_y0 + (d0 * lp if variant_3arg else d0)
-        d1 = (lp_y0 - lp_z2) * lp
-        lp_y1 = lp_z2 + d1
-        lp_z2 = lp_y1 + d1
-        ap_y = xin * ap + ap_z1
-        ap_z1 = xin - ap_y * ap
-        ys.append((ap_y - lp_y1) * hfs + lp_y1)
-    return torch.stack(ys, 1), torch.stack([lp_z1, lp_z2, ap_z1], -1)
+    hp, lp, st = band_split(x, state, coeff, variant_3arg)
+    return hp * _row_gain(hfscale, x) + lp, st
+
+
+def band_split_scale(x: torch.Tensor, state: torch.Tensor, coeff,
+                     hfscale, lfscale, variant_3arg: bool = False):
+    """processScale: separate high and low band gains (the ambisonic
+    up-order mix), scalars or [L]; the sample-sequential recurrence.
+    Returns (y [L, T], state' [L, 3])."""
+    hp, lp, st = band_split(x, state, coeff, variant_3arg)
+    return hp * _row_gain(hfscale, x) + lp * _row_gain(lfscale, x), st
 
 
 class BandSplitterKernels:
-    """Chunk-parallel band splitter with precomputed (f64 -> f32) kernels.
+    """The band splitter of a fixed coefficient, by device.
 
-    The splitter coefficient is fixed per device, so everything except the
-    32-step chunk-state chain is a constant matrix: lower-triangular
-    Toeplitz kernels for the zero-state low-pass and all-pass responses, a
-    drive matrix for the chunk-end states, C*A^k rows for the initial-state
+    CUDA tensors go to the Hopper kernel (``ops/kernels/band_split.py``):
+    the sample-sequential recurrence in one launch, bit-equal to
+    ``band_split``, ``band_split_hf_scale`` and ``band_split_scale``.  Its
+    gains are read on the device; a scalar or numpy gain is put there once
+    and cached.
+
+    CPU tensors take the chunk-parallel form, with precomputed (f64 -> f32)
+    kernels (the sequential one costs ~50x as much there).  The
+    coefficient is fixed per device, so everything except the 32-step
+    chunk-state chain is a constant matrix: lower-triangular Toeplitz
+    kernels for the zero-state low-pass and all-pass responses, a drive
+    matrix for the chunk-end states, C*A^k rows for the initial-state
     responses, and A^K for the chunk recurrence.  State layout (lp_z1,
     lp_z2, ap_z1), as the sequential form's.
     """
@@ -309,7 +320,8 @@ class BandSplitterKernels:
     def __init__(self, coeff: float, variant_3arg: bool = False,
                  chunk: int = SAMPLES_PER_STEP):
         self.chunk = K = chunk
-        apc = float(coeff)
+        self.coeff = apc = float(coeff)
+        self.variant_3arg = variant_3arg
         lpc = apc * 0.5 + 0.5
         z1g = lpc * (1.0 + lpc) if variant_3arg else 2.0 * lpc
         A = np.array([
@@ -339,6 +351,7 @@ class BandSplitterKernels:
             "W_ap": np.stack([C_ap @ Apow[k] for k in range(K)]),
             "M": Apow[K]}
         self._dev: dict = {}
+        self._gains: dict = {}
 
     def _mats(self, device: torch.device) -> dict:
         mats = self._dev.get(device)
@@ -368,24 +381,47 @@ class BandSplitterKernels:
         ap = ap_zero + torch.einsum("dnj,mj->dnm", s_starts, m["W_ap"])
         return lp.reshape(D, T), ap.reshape(D, T), s
 
+    def _gain(self, g, device: torch.device) -> torch.Tensor:
+        """g on ``device``: a tensor as it is, a scalar or numpy gain put
+        there once."""
+        if isinstance(g, torch.Tensor):
+            return g
+        a = np.asarray(g, np.float32)
+        key = (device, a.shape, a.tobytes())
+        t = self._gains.get(key)
+        if t is None:
+            t = self._gains[key] = torch.tensor(a, device=device)
+        return t
+
+    def _kernel(self, x: torch.Tensor, state: torch.Tensor, mode: str,
+                hf=None, lf=None):
+        from .kernels import band_split as bs_k
+
+        gain = lambda g: None if g is None else self._gain(g, x.device)  # noqa: E731
+        return bs_k.band_split(x.contiguous(), state.contiguous(), self.coeff,
+                               mode, gain(hf), gain(lf), self.variant_3arg)
+
     def split(self, x: torch.Tensor, state: torch.Tensor):
         """BandSplitter::process: (hp, lp, state')."""
+        if x.is_cuda:
+            return self._kernel(x, state, "split")
         lp, ap, s = self._run(x, state)
         return ap - lp, lp, s
 
     def hf_scale(self, x: torch.Tensor, state: torch.Tensor, hfscale):
         """processHfScale: (ap - lp) * hf + lp.  hfscale [D]."""
+        if x.is_cuda:
+            return self._kernel(x, state, "hf_scale", hfscale)
         lp, ap, s = self._run(x, state)
-        hf = torch.as_tensor(hfscale, dtype=torch.float32,
-                             device=x.device).reshape(-1, 1)
-        return (ap - lp) * hf + lp, s
+        return (ap - lp) * _row_gain(hfscale, x) + lp, s
 
     def scale(self, x: torch.Tensor, state: torch.Tensor, hfscale, lfscale):
         """processScale: separate HF and LF gains, scalars or [D]."""
+        if x.is_cuda:
+            return self._kernel(x, state, "scale", hfscale, lfscale)
         lp, ap, s = self._run(x, state)
-        as_col = lambda g: torch.as_tensor(  # noqa: E731
-            g, dtype=torch.float32, device=x.device).reshape(-1, 1)
-        return (ap - lp) * as_col(hfscale) + lp * as_col(lfscale), s
+        return ((ap - lp) * _row_gain(hfscale, x)
+                + lp * _row_gain(lfscale, x), s)
 
 
 # --- host half ----------------------------------------------------------------

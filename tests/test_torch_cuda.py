@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from openal_soft_tpu_torch.ops.kernels import band_split as t_bs
 from openal_soft_tpu_torch.ops.kernels import biquad as t_biq
 from openal_soft_tpu_torch.ops.kernels import effect_scan as t_es
 from openal_soft_tpu_torch.ops.kernels import resample_gen as t_gen
@@ -335,3 +336,71 @@ def test_effect_engine_on_the_card_matches_the_cpu(cuda, engine):
     for n in (8192, 4096):
         assert np.abs(g.render_samples(n) - c.render_samples(n)).max() \
             <= tol
+
+
+@pytest.mark.parametrize("mode,v3", list(chip_smoke.BAND_SPLIT_MODES))
+@pytest.mark.parametrize("T", [32, 1024, 16384])
+@pytest.mark.parametrize("D", [1, 4, 5, 16])
+def test_band_split_kernel_equals_plain_version(cuda, D, T, mode, v3):
+    """The band splitter's kernel against its sample-sequential plain
+    version, outputs and state, over two calls carrying the state from a
+    nonzero start; one launch a call."""
+    rng = np.random.default_rng(D * T + len(mode) + v3)
+    got, want, launches = chip_smoke.band_split_calls(rng, D, T, mode, v3,
+                                                      cuda)
+    assert launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["t_not_multiple_of_32", "float64_x",
+                                  "state_on_cpu"])
+def test_band_split_wrapper_rejects_bad_inputs(cuda, case):
+    x = torch.zeros((4, 64), device=cuda)
+    st = torch.zeros((4, 3), device=cuda)
+    if case == "t_not_multiple_of_32":
+        x = torch.zeros((4, 48), device=cuda)
+    elif case == "float64_x":
+        x = x.double()
+    else:
+        st = st.cpu()
+    before = t_bs.band_split.launches
+    with pytest.raises((ValueError, TypeError)):
+        t_bs.band_split(x, st, -0.9, "split")
+    assert t_bs.band_split.launches == before
+
+
+def test_band_splitter_kernels_route_cuda_tensors_to_the_kernel(cuda):
+    """BandSplitterKernels.scale on CUDA tensors, as the UHJ2 shelf calls
+    it (a scalar HF gain, numpy LF gains), is one launch and the plain
+    version's output; the gains are put on the card once."""
+    from openal_soft_tpu_torch.ops import filters as f_ops
+
+    rng = np.random.default_rng(11)
+    coeff = float(f_ops.band_splitter_coeff(400.0 / chip_smoke.RATE))
+    k = f_ops.BandSplitterKernels(coeff)
+    x = torch.tensor(rng.standard_normal((3, 1024)).astype(np.float32),
+                     device=cuda)
+    st = torch.tensor((rng.standard_normal((3, 3)) * 0.1).astype(
+        np.float32), device=cuda)
+    lf = np.array([0.661, 1.293, 1.293], np.float32)
+    for _ in range(2):
+        before = t_bs.band_split.launches
+        got = k.scale(x, st, 1.0, lf)
+        assert t_bs.band_split.launches == before + 1
+        want = t_bs.band_split_ref(x, st, coeff, "scale",
+                                   torch.ones(1, device=cuda),
+                                   torch.tensor(lf, device=cuda))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(k._gains) == 2
+
+
+def test_front_stabilizer_splits_its_mid_on_the_card(cuda):
+    """The surround51 scene (dual-band decode, front stabilizer on) runs
+    two band-split launches a block: the decode's and the stabilizer's."""
+    g = chip_smoke.speaker_scene("surround51", 64, "cuda")
+    assert g._stab is not None
+    splits, duals = t_bs.band_split.launches, g.decode_blocks_dual
+    g.render_samples(4096)
+    duals = g.decode_blocks_dual - duals
+    assert duals > 0
+    assert t_bs.band_split.launches - splits == 2 * duals

@@ -4,6 +4,8 @@ and the chunk-parallel splitter of the HRTF dry bus.  The port keeps the
 JAX operand order; XLA:CPU may contract a + b*c into FMA, so the two agree
 to 1e-6 max abs, not bit for bit."""
 
+import hashlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -137,3 +139,160 @@ def test_band_splitter_kernels_hf_scale_matches_jax():
     gy, gs = t.hf_scale(torch.tensor(x), torch.tensor(st), torch.tensor(hfs))
     assert np.abs(gy.numpy() - np.asarray(wy)).max() <= TOL
     assert np.abs(gs.numpy() - np.asarray(ws)).max() <= TOL
+
+
+# --- the band splitter's routes (ops/kernels/band_split.py) ------------------
+
+# (mode, variant_3arg), as BandSplitterKernels' callers use them.
+SPLIT_MODES = [("split", False), ("hf_scale", False), ("hf_scale", True),
+               ("scale", False)]
+
+
+def _split_case(seed: int, D: int, T: int, v3: bool):
+    """x [D, T], a nonzero state, per-row gains and the crossover of the
+    HRTF dry bus (the out-of-place variant) or of the speakers."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((D, T)).astype(np.float32))
+    st = torch.tensor((rng.standard_normal((D, 3)) * 0.1).astype(np.float32))
+    hf = torch.tensor(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    lf = torch.tensor(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    coeff = float(t_f.band_splitter_coeff((700.0 if v3 else 400.0) / 48000.0))
+    return x, st, hf, lf, coeff
+
+
+def _gains(mode, hf, lf):
+    return {"split": (), "hf_scale": (hf,), "scale": (hf, lf)}[mode]
+
+
+# sha256 (first 16 hex digits) of the CPU route's outputs over two calls
+# of _split_case(5, 5, 1024, v3), the second on the time-reversed block
+# from the first call's state, as the chunk-parallel BandSplitterKernels
+# gave them before CUDA tensors went to the kernel (any thread count).
+CPU_ROUTE_SHA256 = {("split", False): "e3a39be7264adaf4",
+                    ("hf_scale", False): "d45b2e63afdd4581",
+                    ("hf_scale", True): "bc11d535db8b805e",
+                    ("scale", False): "6e961c2ce5105125"}
+
+
+@pytest.mark.parametrize("mode,v3", SPLIT_MODES)
+def test_band_splitter_kernels_cpu_route_is_unchanged(mode, v3):
+    """On the CPU, BandSplitterKernels keeps the chunk-parallel chain and
+    its epilogue: its outputs are bit for bit the pinned ones."""
+    x, st, hf, lf, coeff = _split_case(5, 5, 1024, v3)
+    k = t_f.BandSplitterKernels(coeff, variant_3arg=v3)
+    h = hashlib.sha256()
+    for xin in (x, x.flip(1).contiguous()):
+        out = getattr(k, mode)(xin, st, *_gains(mode, hf, lf))
+        assert len(out) == (3 if mode == "split" else 2)
+        for o in out:
+            h.update(o.numpy().tobytes())
+        st = out[-1]
+    assert h.hexdigest()[:16] == CPU_ROUTE_SHA256[(mode, v3)]
+
+
+@pytest.mark.parametrize("mode", ["split", "scale"])
+def test_band_splitter_kernels_split_and_scale_match_jax(mode):
+    """The CPU route against the JAX package's BandSplitterKernels, as
+    test_band_splitter_kernels_hf_scale_matches_jax for hf_scale."""
+    rng = np.random.default_rng(10)
+    D, T = 5, 1024
+    x = rng.standard_normal((D, T)).astype(np.float32)
+    st = (rng.standard_normal((D, 3)) * 0.1).astype(np.float32)
+    g = [rng.uniform(0.5, 1.5, D).astype(np.float32)
+         for _ in range(mode == "scale" and 2)]
+    coeff = float(j_f.band_splitter_coeff(400.0 / 48000.0))
+    j = j_f.BandSplitterKernels(coeff)
+    t = t_f.BandSplitterKernels(coeff)
+    want = jax.jit(getattr(j, mode))(jnp.asarray(x), jnp.asarray(st),
+                                     *map(jnp.asarray, g))
+    got = getattr(t, mode)(torch.tensor(x), torch.tensor(st),
+                           *map(torch.tensor, g))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= TOL
+
+
+@pytest.mark.parametrize("mode,v3", SPLIT_MODES)
+def test_band_splitter_kernels_cpu_route_near_the_sequential_form(mode, v3):
+    """The chunk-parallel form on the CPU lies within 1e-6 of the peak of
+    the sample-sequential form the card's kernel equals, outputs and
+    state, over two calls carrying the state."""
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+
+    x, st, hf, lf, coeff = _split_case(6, 4, 1024, v3)
+    k = t_f.BandSplitterKernels(coeff, variant_3arg=v3)
+    g = _gains(mode, hf, lf)
+    got_st = want_st = st
+    for xin in (x, x.flip(1).contiguous()):
+        got = getattr(k, mode)(xin, got_st, *g)
+        want = bs_k.band_split_ref(xin, want_st, coeff, mode, *g,
+                                   variant_3arg=v3)
+        peak = float(want[0].abs().max())
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= TOL * peak
+        got_st, want_st = got[-1], want[-1]
+
+
+def test_band_split_scale_matches_jax():
+    """The sequential processScale against the JAX package's scan, per-row
+    HF and LF gains (the UHJ2 shelf's and the convolution upmix's)."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 512)).astype(np.float32)
+    st = (rng.standard_normal((3, 3)) * 0.1).astype(np.float32)
+    coeff = j_f.band_splitter_coeff(400.0 / 48000.0)
+    hfs = np.array([1.0, 1.0, 1.0], np.float32)
+    lfs = np.array([0.661, 1.293, 1.293], np.float32)
+    fn = jax.jit(lambda a, b: j_f.band_split_scale(
+        a, b, jnp.float32(coeff), jnp.asarray(hfs), jnp.asarray(lfs)))
+    wy, ws = fn(jnp.asarray(x), jnp.asarray(st))
+    gy, gs = t_f.band_split_scale(torch.tensor(x), torch.tensor(st), coeff,
+                                  hfs, lfs)
+    assert np.abs(gy.numpy() - np.asarray(wy)).max() <= TOL
+    assert np.abs(gs.numpy() - np.asarray(ws)).max() <= TOL
+
+
+@pytest.mark.parametrize("mode,v3", SPLIT_MODES)
+def test_band_split_wrapper_takes_cpu_tensors_to_the_plain_version(mode, v3):
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+
+    x, st, hf, lf, coeff = _split_case(8, 5, 64, v3)
+    g = _gains(mode, hf, lf)
+    before = bs_k.band_split.launches
+    got = bs_k.band_split(x, st, coeff, mode, *g, variant_3arg=v3)
+    want = bs_k.band_split_ref(x, st, coeff, mode, *g, variant_3arg=v3)
+    assert bs_k.band_split.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _bad_split_args(case: str):
+    x, st, hf, lf, coeff = _split_case(9, 4, 64, False)
+    args = {"x": x, "state": st, "coeff": coeff, "mode": "scale", "hf": hf,
+            "lf": lf}
+    if case == "t_not_multiple_of_32":
+        args["x"] = x[:, :48].contiguous()
+    elif case == "float64_x":
+        args["x"] = x.double()
+    elif case == "state_shape":
+        args["state"] = st[:, :2].contiguous()
+    elif case == "state_device":
+        args["state"] = st.to("meta")
+    elif case == "gain_rows":
+        args["hf"] = hf[:3]
+    elif case == "gain_not_tensor":
+        args["lf"] = 1.0
+    elif case == "mode":
+        args["mode"] = "lowpass"
+    elif case == "x_not_contiguous":
+        args["x"] = torch.cat([x, x], 1)[:, ::2]
+    return args
+
+
+@pytest.mark.parametrize("case", ["t_not_multiple_of_32", "float64_x",
+                                  "state_shape", "state_device", "gain_rows",
+                                  "gain_not_tensor", "mode",
+                                  "x_not_contiguous"])
+def test_band_split_wrapper_checks_its_inputs_on_the_cpu(case):
+    from openal_soft_tpu_torch.ops.kernels import band_split as bs_k
+
+    with pytest.raises((ValueError, TypeError)):
+        bs_k.band_split(**_bad_split_args(case))

@@ -44,14 +44,15 @@ def small_cell():
 
 
 @contextlib.contextmanager
-def scene_built(cell, seed):
-    """The cell's scene through al.api on the CPU, under its alsoft.conf."""
+def scene_built(cell, seed, device="cpu"):
+    """The cell's scene through al.api on ``device``, under its
+    alsoft.conf."""
     scene = runner.scene_inputs(cell, seed)
     try:
         with runner.alsoft_conf(cell):
             config.load_config(reload=True)
             built = runner.scene_module(cell).build(al, cell.config, scene,
-                                                    "cpu")
+                                                    device)
             yield scene, built["dev"]
     finally:
         al.alcMakeContextCurrent(None)
@@ -160,3 +161,21 @@ def test_ranges_open_in_a_profile_and_counters_count():
     blocks = 3 * BLOCKS
     # Two slots a block; the direct path and two sends a voice a block.
     assert counts == ({"eaxreverb": 2 * blocks}, 3 * VOICES * blocks, blocks)
+
+
+@pytest.mark.cuda
+def test_speaker_path_runs_five_band_splits_a_block_on_the_card():
+    """On the card each block runs the band-split kernel five times: each
+    zone's early and late upmix and the dual-band decode (no zone fading
+    between two parameter sets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the band-split kernel has no CPU mode")
+    cell = small_cell()
+    with scene_built(cell, 2**31 + 43, "cuda") as (_, dev):
+        for _ in range(2):
+            al.alcRenderSamplesSOFT(dev, FRAMES)
+        before = dev.band_split_launches
+        blocks = dev.decode_blocks_dual
+        al.alcRenderSamplesSOFT(dev, FRAMES)
+        assert dev.decode_blocks_dual - blocks == BLOCKS
+        assert dev.band_split_launches - before == 5 * BLOCKS
